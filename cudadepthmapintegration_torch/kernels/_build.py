@@ -1,0 +1,138 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, which is loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -o build/libcdmi_torch_<hash>.so csrc/*.cu
+
+``<hash>`` is a content hash of the sources, so an edited source rebuilds.
+``--fmad=false`` is part of the kernels' contract: it keeps every
+multiply-add unfused, as the parity rules require. The library lives in
+``cudadepthmapintegration_torch/build/`` (ignored by git).
+
+Nothing here runs at import: the CPU tests import the kernel modules on a
+machine with neither a GPU nor ``nvcc``. A failed build raises with nvcc's
+output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["BUILD", "BuildInfo", "check", "load_library"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points of csrc/*.cu: name -> argtypes. Each takes the device
+# index and the stream last and returns the cudaError_t of its launch.
+_ENTRIES = {
+    "cdmi_integrate": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
+    "cdmi_gather_colors": [_P] * 5 + [_I] * 5 + [_I, _P],
+}
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    """What :func:`load_library` did: the library path, whether it was
+    compiled in this process, the seconds that took, and nvcc's output
+    (``-Xptxas -v`` lists each kernel's registers and spills)."""
+
+    path: Path | None = None
+    compiled: bool = False
+    seconds: float = 0.0
+    log: str = ""
+
+
+BUILD = BuildInfo()
+
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (searched PATH and $CUDA_HOME/bin): the CUDA kernels "
+        "cannot be built"
+    )
+
+
+def _compile(sources: list[Path], out: Path) -> str:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        out = BUILD_DIR / f"libcdmi_torch_{_digest(sources)}.so"
+        if not out.exists():
+            t0 = time.perf_counter()
+            BUILD.log = _compile(sources, out)
+            BUILD.seconds = time.perf_counter() - t0
+            BUILD.compiled = True
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        BUILD.path = out
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (a ``cudaError_t``) for its
+    launch: a refused launch never runs, and a later synchronize would not
+    report it."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

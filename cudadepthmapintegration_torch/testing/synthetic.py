@@ -1,0 +1,123 @@
+"""Synthetic calibrated scenes (analytic sphere / plane depth maps).
+
+The reference ships no tests or fixtures (SURVEY.md section 4); these renderers
+generate exactly-known depth maps + KRT calibrations so integration, meshing
+and coloration can be validated end-to-end against closed-form geometry.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.camera import Camera
+from ..core.view import DepthMapView
+
+__all__ = ["look_at_camera", "orbit_cameras", "render_sphere_view", "sphere_scene"]
+
+
+def look_at_camera(
+    eye, target, up=(0.0, 0.0, 1.0), focal: float = 300.0, width: int = 128, height: int = 96
+) -> Camera:
+    """Build a Camera at `eye` looking at `target` (world -> camera RT with
+    +z forward, +x right, +y down; K with principal point at the center)."""
+    eye = np.asarray(eye, dtype=np.float64)
+    target = np.asarray(target, dtype=np.float64)
+    up = np.asarray(up, dtype=np.float64)
+    fwd = target - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    if np.linalg.norm(right) < 1e-9:  # forward parallel to up: pick another up
+        right = np.cross(fwd, np.array([1.0, 0.0, 0.0]))
+    right = right / np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    r = np.stack([right, down, fwd])  # rows: camera axes in world coords
+    t = -r @ eye
+    rt = np.eye(4)
+    rt[:3, :3] = r
+    rt[:3, 3] = t
+    k = np.array(
+        [[focal, 0.0, width / 2.0], [0.0, focal, height / 2.0], [0.0, 0.0, 1.0]]
+    )
+    return Camera(k=k, rt=rt)
+
+
+def orbit_cameras(
+    n: int,
+    radius: float,
+    center=(0.0, 0.0, 0.0),
+    height: float = 0.0,
+    focal: float = 300.0,
+    width: int = 128,
+    image_height: int = 96,
+) -> list[Camera]:
+    """`n` cameras on a circle of `radius` about `center`, all looking inward."""
+    center = np.asarray(center, dtype=np.float64)
+    cams = []
+    for i in range(n):
+        a = 2.0 * np.pi * i / n
+        eye = center + np.array([radius * np.cos(a), radius * np.sin(a), height])
+        cams.append(
+            look_at_camera(
+                eye, center, focal=focal, width=width, height=image_height
+            )
+        )
+    return cams
+
+
+def render_sphere_view(
+    camera: Camera,
+    width: int,
+    height: int,
+    center=(0.0, 0.0, 0.0),
+    radius: float = 1.0,
+    background: float = -1.0,
+) -> DepthMapView:
+    """Ray-cast a sphere: per pixel, depth = camera-space z of the first
+    intersection; misses get `background` (-1 = invalid sentinel). Also
+    renders a normal-shaded color image and a zero best-cost channel."""
+    c_world = np.asarray(center, dtype=np.float64)
+    c_cam = camera.rt[:3, :3] @ c_world + camera.rt[:3, 3]
+    k_inv = np.linalg.inv(camera.k)
+    us, vs = np.meshgrid(np.arange(width), np.arange(height))  # (H, W)
+    pix = np.stack([us + 0.0, vs + 0.0, np.ones_like(us, dtype=np.float64)], -1)
+    d = pix @ k_inv.T  # ray directions in camera frame, (H, W, 3)
+    dd = np.einsum("hwc,hwc->hw", d, d)
+    dc = d @ c_cam
+    disc = dc * dc - dd * (c_cam @ c_cam - radius * radius)
+    hit = disc >= 0
+    sq = np.sqrt(np.where(hit, disc, 0.0))
+    t = (dc - sq) / dd  # nearest root
+    hit &= t > 0
+    depth = np.where(hit, t * d[..., 2], background)
+    # Color: Lambertian shading of the sphere normal toward the camera.
+    p = t[..., None] * d  # camera-frame hit points
+    n_vec = p - c_cam
+    norm = np.linalg.norm(n_vec, axis=-1, keepdims=True)
+    n_vec = np.where(norm > 0, n_vec / np.maximum(norm, 1e-12), 0.0)
+    view_dir = d / np.sqrt(dd)[..., None]
+    shade = np.clip(-np.einsum("hwc,hwc->hw", n_vec, view_dir), 0.0, 1.0)
+    color = np.zeros((height, width, 3), dtype=np.uint8)
+    color[..., 0] = np.where(hit, (64 + 191 * shade), 0).astype(np.uint8)
+    color[..., 1] = np.where(hit, (32 + 127 * shade), 0).astype(np.uint8)
+    color[..., 2] = np.where(hit, (16 + 63 * shade), 0).astype(np.uint8)
+    best_cost = np.where(hit, 0.0, 1.0)
+    return DepthMapView(
+        depth=depth, camera=camera, color=color, best_cost=best_cost, name="sphere"
+    )
+
+
+def sphere_scene(
+    n_views: int = 4,
+    width: int = 128,
+    height: int = 96,
+    radius: float = 1.0,
+    cam_radius: float = 4.0,
+    focal: float = 120.0,
+) -> list[DepthMapView]:
+    """A ring of `n_views` cameras around a unit-ish sphere at the origin."""
+    cams = orbit_cameras(
+        n_views, cam_radius, focal=focal, width=width, image_height=height
+    )
+    return [
+        render_sphere_view(c, width, height, radius=radius) for c in cams
+    ]
