@@ -6,15 +6,19 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``cudadepthmapintegration_torch/
-csrc``, holds each against its plain PyTorch version on the card at the main
+csrc``, holds each against its plain PyTorch version on the card at its
 path's shapes (bit for bit: both follow the same rounding, division and
-no-contraction rules), then drives the main path through the port's two
-CLIs, in process, on a synthetic dataset: ``cudareconstruction`` at 512^3
-cells from 64 views of 512x512, then ``coloration`` of the mesh it wrote.
+no-contraction rules), then drives two paths through the port's CLIs, in
+process, on synthetic datasets:
+
+* the main path: ``cudareconstruction`` at 512^3 cells from 64 views of
+  512x512, then ``coloration`` of the mesh it wrote;
+* sparse RGB-D fusion: ``fuse_rgbd --onlineColor`` over a 300-frame
+  640x480 sequence with TUM freiburg1 intrinsics orbiting the unit sphere.
 
 Every phase prints one JSON line. The line before the last holds the
-kernels' record (launches counted during the CLI run only, errors and
-CUDA-event times measured here); the last line is
+kernels' record (launches counted during each kernel's CLI run only, errors
+and CUDA-event times measured here); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without that line. It needs no network and imports no JAX.
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -34,6 +39,13 @@ REPS = 5  # timed repetitions of each kernel and plain version
 DIMS = 513  # grid points per axis of the main path: 512^3 cells
 N_VIEWS = 64
 MAP = 512  # depth/colour map width and height of the main path
+# Sparse RGB-D path: TUM-sized frames with the freiburg1 calibration.
+TUM_W, TUM_H = 640, 480
+FR1 = np.array([[517.3, 0.0, 318.6], [0.0, 516.5, 255.3], [0.0, 0.0, 1.0]])
+# Half of TUM fr1/desk's 573 frames, cut for the time limit.
+SPARSE_FRAMES = 300
+SPARSE_VOXEL = 0.01
+SPARSE_CAPACITY = 32768
 
 
 def emit(record: dict) -> None:
@@ -62,6 +74,153 @@ def orbit_views(n, width, height, focal=300.0):
 
     cams = orbit_cameras(n, 4.0, focal=focal, width=width, image_height=height)
     return [render_sphere_view(c, width, height, radius=1.0) for c in cams]
+
+
+def tum_orbit_view(i, n):
+    """Frame ``i`` of ``n`` on an orbit of the unit sphere: 640x480 with
+    freiburg1 intrinsics, 3 to 4 m from the centre, up to 43 degrees above
+    and below the equator."""
+    from cudadepthmapintegration_torch.core import Camera
+    from cudadepthmapintegration_torch.testing import look_at_camera, render_sphere_view
+
+    a = 2.0 * np.pi * i / n
+    dist, elev = 3.5 + 0.5 * np.sin(3 * a), 0.75 * np.sin(2 * a)
+    eye = dist * np.array([np.cos(elev) * np.cos(a), np.cos(elev) * np.sin(a), np.sin(elev)])
+    rt = look_at_camera(eye, (0.0, 0.0, 0.0)).rt
+    return render_sphere_view(Camera(k=FR1, rt=rt), TUM_W, TUM_H, radius=1.0)
+
+
+def sparse_kernel_phase(params):
+    """The sparse fuse kernel against its plain versions on one frame of the
+    sparse path, depth only and with colour; returns the phase record."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels.sparse_cuda import (
+        sparse_accumulate_color_torch,
+        sparse_fuse,
+        sparse_fuse_torch,
+    )
+    from cudadepthmapintegration_torch.ops.sparse_grid import SparseTSDFGrid
+
+    t0 = time.perf_counter()
+    views = [tum_orbit_view(i, 8) for i in range(8)]
+    grid = SparseTSDFGrid(voxel_size=SPARSE_VOXEL, params=params, capacity=SPARSE_CAPACITY,
+                          with_color=True, device="cuda")
+    grid.preallocate(views)  # the trajectory's blocks, as a known-trajectory run would
+    for v in views[:3]:
+        grid.integrate_frame(v)  # so the compared frame adds into non-zero pools
+    batch = grid.frame_batch(views[3])
+    n_blocks = int(batch.slots.shape[0])
+    voxels = n_blocks * int(np.prod(grid.block_shape))
+    args = (batch.slots, batch.origins, batch.proj_rows, grid.axes, batch.depth)
+    rec = dict(blocks=n_blocks, voxels=voxels, map=[TUM_H, TUM_W])
+    for colour in (False, True):
+        names = ("pool", "color_pool", "weight_pool") if colour else ("pool",)
+        kernel = {k: getattr(grid, k).clone() for k in names}
+        plain = {k: getattr(grid, k).clone() for k in names}
+
+        def run_kernel():
+            extra = {}
+            if colour:
+                extra = dict(color_pool=kernel["color_pool"], weight_pool=kernel["weight_pool"],
+                             rgb=batch.rgb, band=grid.color_band)
+            sparse_fuse(kernel["pool"], *args, params, **extra)
+
+        def run_plain():
+            sparse_fuse_torch(plain["pool"], *args, params)
+            if colour:
+                sparse_accumulate_color_torch(plain["color_pool"], plain["weight_pool"], *args,
+                                              batch.rgb, grid.color_band)
+
+        run_kernel()
+        run_plain()
+        torch.cuda.synchronize()
+        label = "colour" if colour else "depth"
+        errs = {k: float((kernel[k] - plain[k]).abs().max()) for k in names}
+        equal = {k: torch.equal(kernel[k], plain[k]) for k in names}
+        if not all(equal.values()):
+            emit(dict(phase="sparse_kernel", case=label, equal=equal, max_abs_err=errs, ok=False))
+            raise AssertionError(f"sparse fuse kernel differs from its plain version ({label})")
+        ms = cuda_ms(run_kernel, REPS)
+        plain_ms = cuda_ms(run_plain, REPS)
+        rec[label] = dict(equal=equal, max_abs_err=errs, ms=ms, plain_ms=plain_ms,
+                          voxel_updates_per_s=voxels / (ms / 1e3),
+                          plain_voxel_updates_per_s=voxels / (plain_ms / 1e3))
+    if float(grid.pool.abs().max()) <= 0.5:
+        raise AssertionError("sparse kernel case: the frames missed the blocks")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def fuse_rgbd_phase(tmp):
+    """``fuse_rgbd --onlineColor --device cuda`` over a written sequence;
+    returns the sparse kernel's launches in the run."""
+    import io
+
+    from cudadepthmapintegration_torch.cli import fuse_rgbd
+    from cudadepthmapintegration_torch.io import read_vtp, write_depth_map_vti, write_krtd
+    from cudadepthmapintegration_torch.kernels import coloration_cuda, integrate_cuda, sparse_cuda
+    from cudadepthmapintegration_torch.utils.log import Log
+
+    t0 = time.perf_counter()
+    for i in range(SPARSE_FRAMES):
+        v = tum_orbit_view(i, SPARSE_FRAMES)
+        write_depth_map_vti(os.path.join(tmp, f"t{i:03d}.vti"), v.depth, v.color)
+        write_krtd(os.path.join(tmp, f"t{i:03d}.krtd"), v.camera)
+    lists = {}
+    for name, ext in (("tumVti.txt", "vti"), ("tumKrtd.txt", "krtd")):
+        lists[ext] = os.path.join(tmp, name)
+        with open(lists[ext], "w") as f:
+            f.write("".join(f"t{i:03d}.{ext}\n" for i in range(SPARSE_FRAMES)))
+    dataset_s = time.perf_counter() - t0
+
+    out = os.path.join(tmp, "fused.vtp")
+    log = Log(verbose=True, stream=io.StringIO())
+    integrate_cuda.launches = coloration_cuda.launches = sparse_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc = fuse_rgbd.main([
+        "--vti", lists["vti"], "--krtd", lists["krtd"], "--onlineColor", "--device", "cuda",
+        "--voxelSize", repr(SPARSE_VOXEL), "--capacity", str(SPARSE_CAPACITY),
+        "--pixelStride", "4", "--output", out,
+    ], log=log)
+    cli_s = time.perf_counter() - t0
+    launches = sparse_cuda.launches
+    if rc != 0:
+        raise AssertionError(f"fuse_rgbd exited {rc}")
+    text = log.stream.getvalue()
+    fused = re.search(r"fused (\d+) frames in .*?, (\d+) blocks allocated", text)
+    if fused is None:
+        raise AssertionError("fuse_rgbd did not report its frames and blocks")
+    frames, blocks = int(fused.group(1)), int(fused.group(2))
+    mesh = read_vtp(out)
+    radii = np.linalg.norm(mesh.points, axis=1)
+    weight = mesh.point_data.get("ColorWeight", np.zeros(0)).reshape(-1)
+    rec = dict(frames=frames, map=[TUM_H, TUM_W], voxel=SPARSE_VOXEL,
+               note=f"{SPARSE_FRAMES} frames: half of TUM fr1/desk's 573, cut for the time limit",
+               dataset_s=dataset_s, cli_s=cli_s, fuse_s=log.timings["Fuse frames"],
+               fused_fps=frames / log.timings["Fuse frames"], blocks_allocated=blocks,
+               extract_mesh_s=log.timings["Extract mesh"], launches=launches,
+               points=mesh.num_points, triangles=mesh.num_triangles,
+               median_radius=float(np.median(radii)) if len(radii) else None,
+               arrays=sorted(mesh.point_data),
+               color_weight_pos_frac=float((weight > 0).mean()) if len(weight) else 0.0)
+    emit(dict(phase="fuse_rgbd", **rec))
+    problems = [
+        msg for bad, msg in (
+            (mesh.num_triangles == 0, "the sparse mesh has no triangles"),
+            (not np.isfinite(mesh.points).all(), "sparse mesh points are not finite"),
+            (not len(radii) or not 0.95 <= rec["median_radius"] <= 1.05,
+             "sparse median radius off the unit sphere"),
+            (not {"MeanColoration", "ColorWeight"} <= set(mesh.point_data),
+             "online colour arrays missing"),
+            (rec["color_weight_pos_frac"] < 0.9, "too few vertices received online colour"),
+            (frames != SPARSE_FRAMES, "fuse_rgbd did not fuse every frame"),
+            (launches == 0, "fuse_rgbd never launched the sparse fuse kernel"),
+        ) if bad
+    ]
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
 
 
 def integrate_case(label, dims, origin, views, params):
@@ -135,8 +294,9 @@ def main() -> int:
     _build.load_library()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               compiled=_build.BUILD.compiled, library=str(_build.BUILD.path),
+              spill_bytes=sum(int(n) for n in re.findall(r"(\d+) bytes spill", _build.BUILD.log)),
               ptxas=[ln.strip() for ln in _build.BUILD.log.splitlines()
-                     if "registers" in ln or "spill" in ln]))
+                     if "entry function" in ln or "registers" in ln or "spill" in ln]))
 
     # 3. Integrate kernel vs plain version.
     t0 = time.perf_counter()
@@ -277,6 +437,15 @@ def main() -> int:
         if problems:
             raise AssertionError("; ".join(problems))
 
+    # 6. The sparse RGB-D path: its kernel vs its plain versions (2 voxels
+    # thick, an 8-voxel band: fuse_rgbd's defaults), then the fuse_rgbd CLI.
+    sparse = sparse_kernel_phase(
+        RayPotential(thick=2 * SPARSE_VOXEL, rho=0.8, eta=0.03, delta=8 * SPARSE_VOXEL))
+    emit(dict(phase="sparse_kernel", **sparse, ok=True))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cdmi_smoke_rgbd_") as tmp:
+        launches["sparse_fuse"] = fuse_rgbd_phase(tmp)
+
     main_case = records[0]
     emit({"kernels": [
         dict(name="integrate", route="cuda",
@@ -290,6 +459,12 @@ def main() -> int:
              replaces="cudadepthmapintegration_tpu/kernels/coloration_pallas.py:85",
              launches=launches["coloration"], max_abs_err=col["max_abs_err"],
              ms=col["ms"], plain_ms=col["plain_ms"]),
+        dict(name="sparse_fuse", route="cuda",
+             source="cudadepthmapintegration_torch/csrc/sparse_fuse.cu",
+             replaces="cudadepthmapintegration_tpu/kernels/gather_points.py:35",
+             launches=launches["sparse_fuse"],
+             max_abs_err=max(max(sparse[c]["max_abs_err"].values()) for c in ("depth", "colour")),
+             ms=sparse["colour"]["ms"], plain_ms=sparse["colour"]["plain_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

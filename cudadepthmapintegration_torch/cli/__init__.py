@@ -6,7 +6,7 @@ doesn't trigger runpy's double-import warning.
 
 import importlib
 
-__all__ = ["colorize", "reconstruct"]
+__all__ = ["colorize", "fuse_rgbd", "reconstruct"]
 
 
 def __getattr__(name):

@@ -28,11 +28,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float round_half_away(float x) {
-  return copysignf(floorf(__fadd_rn(fabsf(x), 0.5f)), x);
-}
+using cdmi::round_half_away;
 
 __device__ __forceinline__ float project_row(const float* p, float x, float y,
                                              float z) {

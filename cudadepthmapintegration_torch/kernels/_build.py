@@ -1,12 +1,16 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library with
+a plain C interface, which is loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o build/libcdmi_torch_<hash>.so csrc/*.cu
+         -Xptxas -v -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/libcdmi_torch_<hash>.so *.o
 
-``<hash>`` is a content hash of the sources, so an edited source rebuilds.
+``<hash>`` is a content hash of the sources (``*.cu`` and the ``*.cuh``
+headers they include), so an edited source rebuilds.
 ``--fmad=false`` is part of the kernels' contract: it keeps every
 multiply-add unfused, as the parity rules require. The library lives in
 ``cudadepthmapintegration_torch/build/`` (ignored by git).
@@ -33,10 +37,12 @@ __all__ = ["BUILD", "BuildInfo", "check", "load_library"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = (*_ARCH, "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of csrc/*.cu: name -> argtypes. Each takes the device
@@ -44,6 +50,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {
     "cdmi_integrate": [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I, _P],
     "cdmi_gather_colors": [_P] * 5 + [_I] * 5 + [_I, _P],
+    "cdmi_sparse_fuse": [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P],
 }
 
 
@@ -71,8 +78,8 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -92,19 +99,36 @@ def _nvcc() -> str:
     )
 
 
+def _run_failed(cmd: list[str], rc: int, output: str) -> RuntimeError:
+    return RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
+
+
 def _compile(sources: list[Path], out: Path) -> str:
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise _run_failed(cmd, proc.returncode, log)
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise _run_failed(link, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:

@@ -148,7 +148,8 @@ def marching_cubes(
     zs: np.ndarray,
     matrix: np.ndarray | None = None,
     compute_normals: bool = False,
-) -> PolyData:
+    return_soup: bool = False,
+) -> PolyData | tuple[np.ndarray, np.ndarray]:
     """Extract the `iso` isosurface of a (nz, ny, nx) point-scalar volume.
 
     ``xs/ys/zs`` are the per-axis point coordinates (grid frame); ``matrix``
@@ -160,6 +161,11 @@ def marching_cubes(
     normals, ``ops/normals.py`` — vtkContourFilter's ComputeNormals default,
     see ``Reconstruction/main.cxx:169-173``), transformed by ``matrix`` like
     the points; it reads the point volume on the host.
+
+    ``return_soup=True`` skips welding and returns the raw triangle soup
+    ``(verts (M, 3), keys (M,))`` with volume-local edge keys, for callers
+    (the sparse per-block extraction) that translate the keys to a global
+    domain and weld once at the end.
     """
     pv = torch.as_tensor(point_volume)
     nz, ny, nx = pv.shape
@@ -168,6 +174,8 @@ def marching_cubes(
     cfg = _cube_config(pv, iso_t).reshape(-1)
     flat_idx = torch.nonzero((cfg != 0) & (cfg != 255)).squeeze(1)
     if flat_idx.numel() == 0:
+        if return_soup:
+            return np.zeros((0, 3)), np.zeros((0,), np.int64)
         empty = PolyData(np.zeros((0, 3)), np.zeros((0, 3), np.int64))
         if compute_normals:
             # Non-empty results carry "Normals"; keep the attribute set
@@ -193,6 +201,8 @@ def marching_cubes(
         keys_parts.append(keys[valid])
     flat_verts = torch.cat(verts_parts).cpu().numpy()
     flat_keys = torch.cat(keys_parts).cpu().numpy()
+    if return_soup:
+        return flat_verts, flat_keys
     if not compute_normals:
         return _weld_triangle_soup(flat_verts, flat_keys, matrix)
     mesh, uniq = _weld_triangle_soup(flat_verts, flat_keys, matrix, return_keys=True)
