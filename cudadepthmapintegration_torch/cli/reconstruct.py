@@ -12,8 +12,9 @@ defaults, and validation rules preserved):
   --outputMeshFilename X.vtp  --outputGridFilename X.vts
   --verbose --summary --forceCubicVoxel
 
-plus ``--dtype``, ``--streamBatch``, ``--mhaPath`` and ``--device cuda|cpu``
-(default cuda: with no CUDA device the run stops with an error).
+plus ``--dtype``, ``--streamBatch``, ``--mhaPath``, ``--checkpoint`` and
+``--device cuda|cpu`` (default cuda: with no CUDA device the run stops with
+an error).
 
 Validation parity: dims/spacing mutually exclusive (main.cxx:249-254); a
 single --gridDims value broadcasts to 3 (main.cxx:257-261); delta >= thick and
@@ -96,6 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--streamBatch", type=int, default=32,
                    help="Views per host->device transfer and kernel launch "
                         "(default 32)")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="Fault-tolerant fusion: checkpoint view-range units "
+                        "to this file; re-running with the same path "
+                        "RESUMES after a crash")
     p.add_argument("--mhaPath", type=str, default="meta_image_volume.mha",
                    help="Path of the always-written meta-image volume; "
                         "'' disables (reference hardcodes cwd)")
@@ -160,6 +165,7 @@ def main(argv: list[str] | None = None) -> int:
         device=args.device,
         stream_batch=args.streamBatch,
         write_mha_path=args.mhaPath or None,
+        checkpoint_path=args.checkpoint,
     )
 
     try:

@@ -122,11 +122,14 @@ def gather_colors(
 
     lib = load_library()
     dev = points.device.index  # always set on a CUDA tensor
-    err = lib.cdmi_gather_colors(
-        points.data_ptr(), proj.data_ptr(), colors.data_ptr(),
-        samples.data_ptr(), valid.data_ptr(), n, n_views, h, w, int(z_test),
-        dev, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # The library sets the device it launches on; the guard restores the
+    # caller's current device afterwards.
+    with torch.cuda.device(dev):
+        err = lib.cdmi_gather_colors(
+            points.data_ptr(), proj.data_ptr(), colors.data_ptr(),
+            samples.data_ptr(), valid.data_ptr(), n, n_views, h, w, int(z_test),
+            dev, torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(err, "cdmi_gather_colors")
     launches += 1
     return samples, valid

@@ -141,12 +141,15 @@ def integrate_views(
     lib = load_library()
     s = params.scalars()
     dev = volume.device.index  # always set on a CUDA tensor
-    err = lib.cdmi_integrate(
-        volume.data_ptr(), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
-        tc.data_ptr(), depths.data_ptr(), n_views, cz, cy, cx, h, w,
-        s["thick"], s["rho"], s["delta"], s["rho_over_thick"],
-        s["neg_eta_rho"], dev, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # The library sets the device it launches on; the guard restores the
+    # caller's current device afterwards.
+    with torch.cuda.device(dev):
+        err = lib.cdmi_integrate(
+            volume.data_ptr(), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
+            tc.data_ptr(), depths.data_ptr(), n_views, cz, cy, cx, h, w,
+            s["thick"], s["rho"], s["delta"], s["rho_over_thick"],
+            s["neg_eta_rho"], dev, torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(err, "cdmi_integrate")
     launches += 1
     return volume

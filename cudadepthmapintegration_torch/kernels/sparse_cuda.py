@@ -234,12 +234,15 @@ def sparse_fuse(
     def ptr(name):
         return tensors[name].data_ptr() if name in tensors else None
 
-    err = lib.cdmi_sparse_fuse(
-        pool.data_ptr(), slots.data_ptr(), origins.data_ptr(), proj_rows.data_ptr(),
-        axes.data_ptr(), depth.data_ptr(), ptr("rgb"), ptr("color_pool"),
-        ptr("weight_pool"), slots.shape[0], bz, by, bx, axes.shape[1], h, w,
-        s["thick"], s["rho"], s["delta"], s["rho_over_thick"], s["neg_eta_rho"],
-        float(band), dev, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # The library sets the device it launches on; the guard restores the
+    # caller's current device afterwards.
+    with torch.cuda.device(dev):
+        err = lib.cdmi_sparse_fuse(
+            pool.data_ptr(), slots.data_ptr(), origins.data_ptr(), proj_rows.data_ptr(),
+            axes.data_ptr(), depth.data_ptr(), ptr("rgb"), ptr("color_pool"),
+            ptr("weight_pool"), slots.shape[0], bz, by, bx, axes.shape[1], h, w,
+            s["thick"], s["rho"], s["delta"], s["rho_over_thick"], s["neg_eta_rho"],
+            float(band), dev, torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(err, "cdmi_sparse_fuse")
     launches += 1

@@ -22,15 +22,23 @@ def _axis_counts(n: int, like: torch.Tensor) -> torch.Tensor:
     return c
 
 
+def _shifted_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum of the eight unit-shifted windows of a padded volume ``v``:
+    one point per pair of adjacent planes along each axis."""
+    pz, py, px = (n - 1 for n in v.shape)
+    total = torch.zeros((pz, py, px), dtype=v.dtype, device=v.device)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                total += v[dz : dz + pz, dy : dy + py, dx : dx + px]
+    return total
+
+
 def cell_to_point(cell_volume: torch.Tensor) -> torch.Tensor:
     """(cz, cy, cx) cell scalars -> (cz+1, cy+1, cx+1) point scalars."""
     cz, cy, cx = cell_volume.shape
     v = F.pad(cell_volume, (1, 1, 1, 1, 1, 1))
-    total = torch.zeros((cz + 1, cy + 1, cx + 1), dtype=v.dtype, device=v.device)
-    for dz in (0, 1):
-        for dy in (0, 1):
-            for dx in (0, 1):
-                total += v[dz : dz + cz + 1, dy : dy + cy + 1, dx : dx + cx + 1]
+    total = _shifted_sum(v)
     # The count is a product of per-axis counts (exact small integers), the
     # same values the JAX version sums from a padded ones volume.
     count = (

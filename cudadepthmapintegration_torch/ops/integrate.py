@@ -92,6 +92,8 @@ class TSDFIntegrator:
         self.device = torch.device(device)
         self.volume: torch.Tensor | None = None
         self.views_fused = 0
+        # Volume read+write sweeps since reset: one per kernel launch.
+        self.volume_sweeps = 0
         # (h, w) of the first view since reset: every map must match it
         # (vtkCudaReconstructionFilter.cxx:167-173).
         self._map_shape: tuple[int, int] | None = None
@@ -110,6 +112,7 @@ class TSDFIntegrator:
                 )
             self.volume = vol.to(self.device, self.dtype).contiguous()
         self.views_fused = 0
+        self.volume_sweeps = 0
         self._map_shape = None
         return self
 
@@ -143,6 +146,13 @@ class TSDFIntegrator:
             self.params,
         )
         self.views_fused += len(views)
+        self.volume_sweeps += 1
+        return self
+
+    def synchronize(self) -> "TSDFIntegrator":
+        """Wait until the device has finished every launch so far."""
+        if self.volume is not None and self.volume.is_cuda:
+            torch.cuda.synchronize(self.volume.device)
         return self
 
     def flush(self) -> "TSDFIntegrator":

@@ -33,7 +33,10 @@ from ..io.polydata import PolyData, write_vtp, write_vts
 from ..ops.cell_to_point import cell_to_point
 from ..ops.integrate import TSDFIntegrator
 from ..ops.marching_cubes import extract_isosurface
+from ..parallel.rig import grid_for_sharding, permute_volume, unpermute_volume
+from ..parallel.sharded_integrate import ShardedTSDFIntegrator
 from ..utils.log import RAY_POTENTIAL_ASCII, Log
+from .runner import FaultTolerantRunner
 from .streaming import prefetch_views
 
 __all__ = ["ReconstructionConfig", "ReconstructionPipeline", "ReconstructionResult"]
@@ -62,6 +65,11 @@ class ReconstructionConfig:
     device: str = "cuda"  # where the volume lives: 'cuda' or 'cpu'
     stream_batch: int = 32  # views per host->device transfer and launch
     write_mha_path: str | None = "meta_image_volume.mha"
+    # Fault-tolerant mode: fuse as retried, checkpointed view-range units
+    # (pipeline/runner.py); re-running with the same path RESUMES. The
+    # reference has no equivalent (gpuAssert exits, CudaReconstruction.cu:
+    # 68-76); unit size = stream_batch.
+    checkpoint_path: str | None = None
 
     def make_grid(self) -> VoxelGrid:
         """Grid construction with the CLI's dims/spacing/gridEnd inference
@@ -109,12 +117,39 @@ class ReconstructionResult:
     execution_time: float  # fusion seconds (GetExecutionTime parity)
     total_time: float
     views_fused: int
+    # Volume read+write sweeps made by the integrator: one per kernel launch
+    # (per shard on a mesh).
+    volume_sweeps: int = 0
 
 
 class ReconstructionPipeline:
-    def __init__(self, config: ReconstructionConfig, log: Log | None = None):
+    def __init__(
+        self,
+        config: ReconstructionConfig,
+        log: Log | None = None,
+        mesh=None,
+        shard_axis: str = "z",
+    ):
+        """`mesh`: optional ``parallel.DeviceMesh`` — fusion then runs
+        z-slab-sharded across its devices (parallel/sharded_integrate), and
+        the mesh's devices, not ``config.device``, hold the volume.
+
+        `shard_axis`: 'z' (default) slices the grid's native z axis;
+        'auto' relabels the grid so the slab sharding cuts the axis the
+        cameras look along LEAST (parallel/rig.py). The relabeling permutes
+        the volume exactly but regroups the kernel's table sum, so values
+        may move by an ulp; the result is returned in the canonical layout
+        either way. Requires a mesh. Composes with
+        `checkpoint_path`: checkpoints always store canonical-layout
+        volumes (the permutation is applied at the integrator boundary),
+        so a run resumed with a different axis choice — or none — stays
+        correct."""
+        if shard_axis not in ("z", "auto"):
+            raise ValueError(f"shard_axis must be 'z' or 'auto', got {shard_axis!r}")
         self.config = config
         self.log = log or Log(verbose=False)
+        self.mesh = mesh
+        self.shard_axis = shard_axis
 
     def _print_parameters(self, grid: VoxelGrid) -> None:
         """Verbose parameter dump (``ShowFilledParameters``, main.cxx:396-454)."""
@@ -147,17 +182,89 @@ class ReconstructionPipeline:
         self,
         views: Iterable[DepthMapView] | Sequence[DepthMapView],
         initial: np.ndarray | None = None,
-    ) -> tuple[TSDFIntegrator, float]:
+    ):
         """Streamed fusion of all views; returns (integrator, seconds).
 
-        The seconds end when the device has finished the last batch."""
+        The integrator is a ``TSDFIntegrator``, or a
+        ``ShardedTSDFIntegrator`` when the pipeline has a mesh. The seconds
+        end when the devices have finished the last batch."""
         cfg = self.config
         grid = cfg.make_grid()
         params = cfg.ray_potential()
         self._print_parameters(grid)
-        integrator = TSDFIntegrator(
-            grid, params, dtype=cfg.dtype, device=cfg.device
-        ).reset(initial)
+        perm = (0, 1, 2)  # identity unless shard_axis='auto' relabels below
+        if self.mesh is not None:
+            fuse_grid = grid
+            if self.shard_axis == "auto":
+                # Sequences/datasets are scored via lazy camera access
+                # (rig_cameras); only a bare generator must materialize,
+                # since it is consumed again by the fusion loop below.
+                views = views if hasattr(views, "__getitem__") else list(views)
+                fuse_grid, perm = grid_for_sharding(
+                    grid, views, n_shards=self.mesh.shape["z"]
+                )
+            init = initial
+            if perm != (0, 1, 2) and initial is not None:
+                init = permute_volume(np.asarray(initial), perm)
+            sharded = ShardedTSDFIntegrator(
+                fuse_grid, params, self.mesh, dtype=cfg.dtype
+            ).reset(init)
+            if perm != (0, 1, 2):
+                raw_result = sharded.result
+                sharded.result = (  # type: ignore[method-assign]
+                    lambda: np.ascontiguousarray(
+                        unpermute_volume(raw_result(), perm)
+                    )
+                )
+            integrator = sharded
+        else:
+            integrator = TSDFIntegrator(
+                grid, params, dtype=cfg.dtype, device=cfg.device
+            ).reset(initial)
+
+        if cfg.checkpoint_path is not None:
+            if initial is not None:
+                raise ValueError(
+                    "checkpoint_path and an explicit initial volume are "
+                    "mutually exclusive (the checkpoint seeds the volume)"
+                )
+            def to_fuse_layout(vol):
+                # Checkpoints (and the runner) live in the CANONICAL grid
+                # layout; a shard_axis='auto' integrator fuses on the
+                # relabeled grid, so seeds cross the boundary permuted
+                # (result() is already wrapped to unpermute) — this is what
+                # lets 'auto' compose with resume across axis choices.
+                if vol is None or perm == (0, 1, 2):
+                    return vol
+                return permute_volume(np.asarray(vol), perm)
+
+            sweeps = 0
+
+            def integrate_fn(vol, batch):
+                # Every unit round-trips the volume through the host: the
+                # runner snapshots and checkpoints host volumes.
+                nonlocal sweeps
+                integrator.reset(to_fuse_layout(vol))
+                integrator.integrate(batch, cfg.threshold_best_cost)
+                sweeps += integrator.volume_sweeps
+                return integrator.result()
+
+            runner = FaultTolerantRunner(
+                grid,
+                params,
+                integrate_fn,
+                unit_size=cfg.stream_batch,
+                checkpoint_path=cfg.checkpoint_path,
+                log=self.log,
+            )
+            t0 = time.perf_counter()
+            seq = views if hasattr(views, "__getitem__") else list(views)
+            volume = runner.run(seq)
+            integrator.reset(to_fuse_layout(volume))
+            integrator.views_fused = len(seq)
+            integrator.volume_sweeps = sweeps
+            integrator.synchronize()
+            return integrator, time.perf_counter() - t0
 
         t0 = time.perf_counter()
         batch: list[DepthMapView] = []
@@ -180,8 +287,7 @@ class ReconstructionPipeline:
         if n_total:
             self.log.progress(n_total, n_total)
             self.log.info("")
-        if integrator.volume.is_cuda:
-            torch.cuda.synchronize(integrator.volume.device)
+        integrator.synchronize()
         return integrator, time.perf_counter() - t0
 
     def run(
@@ -199,7 +305,13 @@ class ReconstructionPipeline:
         grid = cfg.make_grid()
         with log.phase("Launch reconstruction"):
             integrator, exec_time = self.fuse(views, initial=initial)
-        volume_dev = integrator.volume
+        if self.mesh is None:
+            volume_dev = integrator.volume
+        else:
+            # The sharded volume is gathered once, in the canonical layout,
+            # onto the mesh's first device for the dense extraction.
+            volume = integrator.result()
+            volume_dev = torch.from_numpy(volume).to(self.mesh.devices[0, 0])
 
         # The reference ALWAYS writes the cell->point volume as a compressed
         # .mha in the cwd (main.cxx:157-161).
@@ -221,7 +333,8 @@ class ReconstructionPipeline:
             with log.phase("Save mesh"):
                 write_vtp(output_mesh_path, mesh)
 
-        volume = integrator.result()
+        if self.mesh is None:
+            volume = integrator.result()
         if output_grid_path:
             with log.phase("Save volume"):
                 # Structured grid of all grid points, transformed by the grid
@@ -251,6 +364,7 @@ class ReconstructionPipeline:
             execution_time=exec_time,
             total_time=total,
             views_fused=integrator.views_fused,
+            volume_sweeps=integrator.volume_sweeps,
         )
 
     def write_summary(
