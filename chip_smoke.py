@@ -30,11 +30,24 @@ process, on synthetic datasets:
 * sparse RGB-D fusion: ``fuse_rgbd --onlineColor`` over a 300-frame
   640x480 sequence with TUM freiburg1 intrinsics orbiting the unit sphere.
 
+The integrate kernel is held to its plain version in bit patterns (int32
+view, which tells -0.0 from +0.0), on the odd grid from a volume of -0.0
+too, and so is the CLI's fused volume. Every
+kernel record carries its bound: the least time an H100 could take for the
+same work, the larger of its FLOPs over the FP32 peak and its bytes (each
+input read once, each output written once) over the HBM rate, with the
+share of it the kernel reached.
+
 Every phase prints one JSON line. The line before the last holds the
-kernels' record (launches counted during each kernel's CLI run only, errors
-and CUDA-event times measured here); the last line is
+kernels' record (launches counted during each kernel's CLI run only, errors,
+bounds and CUDA-event times measured here); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
 non-zero without that line. It needs no network and imports no JAX.
+
+``python3 chip_smoke.py --integrate-shapes`` does one thing only: it builds
+``csrc/integrate.cu`` once per launch shape (voxels a thread along z, block
+shape), holds each build to the plain version bit for bit and times it on
+the integrate cases. The library itself is built with one shape.
 """
 
 from __future__ import annotations
@@ -74,6 +87,26 @@ FLIP_BUDGET = 2e-4
 # Multi-process fusion: two processes share the card, 256^3 cells from 16
 # views of 512x512 in units of 4 views.
 MP_DIMS, MP_VIEWS, MP_UNIT = 257, 16, 4
+# An H100 SXM's peaks (NVIDIA's data sheet): FP32 outside the tensor cores
+# and HBM3. The bounds are taken against them, whatever the power limit.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# FLOPs of one unit of work, counted from the kernels' arithmetic:
+# an integrate (voxel, view) update: 8 adds for hom, 2 divisions, 2 x 2 for
+# the roundings, 3 for the ray potential and the accumulate;
+INTEGRATE_FLOPS = 17
+# a coloration (vertex, view) sample: 3 rows x (3 multiplies + 3 adds), 2
+# divisions, 2 x 2 for the roundings;
+COLORATION_FLOPS = 24
+# a sparse voxel update: 4 rows x (3 multiplies + 3 adds), 2 divisions,
+# 2 x 2 for the roundings, 3 for the potential and the accumulate; with
+# colour 11 more (a division, the falloff, 3 multiply-adds, the weight).
+SPARSE_FLOPS, SPARSE_COLOR_FLOPS = 33, 11
+NEG_ZERO = -(1 << 31)  # the int32 bits of -0.0
+# The launch shapes `--integrate-shapes` builds csrc/integrate.cu with:
+# voxels a thread along z, and threads a block along x and y.
+SHAPE_KZS = (1, 2, 4, 8, 16)
+SHAPE_BLOCKS = ((32, 4), (32, 8), (16, 8), (8, 16))
 
 
 def emit(record: dict) -> None:
@@ -95,6 +128,43 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def roofline(flops, nbytes, ms):
+    """The bound of work of ``flops`` FLOPs and ``nbytes`` bytes, and the
+    share of it that a kernel taking ``ms`` reached."""
+    ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound = max(ops_ms, bytes_ms)
+    return dict(flops=flops, bytes=nbytes, bound_ms=bound,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                roofline_share=bound / ms)
+
+
+def integrate_roofline(cells, views, cells_xyz, map_hw, ms):
+    """Integrate: the volume read and written once, the maps and the
+    (V, 4, c) tables read once."""
+    cz, cy, cx = cells_xyz
+    nbytes = 8 * cells + 4 * views * (map_hw[0] * map_hw[1] + 4 * (cx + cy + cz + 1))
+    return roofline(INTEGRATE_FLOPS * cells * views, nbytes, ms)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, printed on a line of their own."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    return smi
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit patterns: unlike ``==``, tells -0.0 from +0.0."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    return bool(np.array_equal(a.view(np.int32), b.view(np.int32)))
 
 
 def orbit_views(n, width, height, focal=300.0):
@@ -171,9 +241,15 @@ def sparse_kernel_phase(params):
             raise AssertionError(f"sparse fuse kernel differs from its plain version ({label})")
         ms = cuda_ms(run_kernel, REPS)
         plain_ms = cuda_ms(run_plain, REPS)
+        # Pools read and written once (4 + 12 + 4 bytes a voxel with
+        # colour), the frame's maps, slots and origins read once.
+        flops = (SPARSE_FLOPS + (SPARSE_COLOR_FLOPS if colour else 0)) * voxels
+        nbytes = (2 * (4 + (16 if colour else 0)) * voxels
+                  + TUM_W * TUM_H * (4 + (3 if colour else 0)) + 16 * n_blocks)
         rec[label] = dict(equal=equal, max_abs_err=errs, ms=ms, plain_ms=plain_ms,
                           voxel_updates_per_s=voxels / (ms / 1e3),
-                          plain_voxel_updates_per_s=voxels / (plain_ms / 1e3))
+                          plain_voxel_updates_per_s=voxels / (plain_ms / 1e3),
+                          **roofline(flops, nbytes, ms))
     if float(grid.pool.abs().max()) <= 0.5:
         raise AssertionError("sparse kernel case: the frames missed the blocks")
     rec["seconds"] = time.perf_counter() - t0
@@ -258,14 +334,16 @@ def cube_grid(dims, origin):
     return VoxelGrid(dims=dims, origin=origin, spacing=tuple(3.2 / (d - 1) for d in dims))
 
 
-def integrate_case(label, grid, views, params):
+def integrate_case(label, grid, views, params, from_neg_zero=False):
     """Kernel vs plain version on one grid; returns the case record and the
-    fused volume."""
+    fused volume. With ``from_neg_zero`` both run once more from a volume of
+    -0.0."""
     import torch
 
     from cudadepthmapintegration_torch.kernels.integrate_cuda import (
         integrate_views,
         integrate_views_torch,
+        stage_tables,
     )
     from cudadepthmapintegration_torch.ops.integrate import projection_tables
 
@@ -281,19 +359,154 @@ def integrate_case(label, grid, views, params):
     rec = dict(case=label, cells=list(grid.volume_shape), views=len(views),
                map=list(depths.shape[1:]),
                max_abs_err=float(diff.max()),
-               differing_frac=float((kernel != plain).float().mean()))
-    if not torch.equal(kernel, plain):
+               differing_frac=float((kernel.view(torch.int32) != plain.view(torch.int32))
+                                    .float().mean()))
+    if not same_bits(kernel, plain):
         emit(dict(phase="integrate", **rec, ok=False))
         raise AssertionError(f"integrate kernel differs from its plain version ({label})")
     if float(kernel.abs().max()) <= 0.5:
         raise AssertionError(f"integrate case {label}: the scene missed the grid")
+    if from_neg_zero:
+        # Every sample adds its potential or +0.0, and -0.0 + +0.0 is +0.0,
+        # so no -0.0 word may stay. A kernel that skipped the +0.0 add would
+        # keep -0.0 where no valid sample reached: only the bits show it.
+        k0, p0 = torch.full_like(kernel, -0.0), torch.full_like(plain, -0.0)
+        integrate_views(k0, *args, params)
+        integrate_views_torch(p0, *args, params)
+        bits = k0.view(torch.int32)
+        rec["from_neg_zero"] = neg = dict(
+            equal_bits=same_bits(k0, p0), neg_zero_words=int((bits == NEG_ZERO).sum()),
+            pos_zero_words=int((bits == 0).sum()))
+        del k0, p0, bits
+        if not neg["equal_bits"] or neg["neg_zero_words"] or not neg["pos_zero_words"]:
+            emit(dict(phase="integrate", **rec, ok=False))
+            raise AssertionError(f"integrate kernel from -0.0 is off ({label})")
     fused = kernel.cpu().numpy()  # the timed runs below keep accumulating
     rec["ms"] = cuda_ms(lambda: integrate_views(kernel, *args, params), REPS)
+    # The wrapper's table staging alone, a part of ``ms``.
+    rec["stage_ms"] = cuda_ms(lambda: stage_tables(*args[:4]), REPS)
     rec["plain_ms"] = cuda_ms(lambda: integrate_views_torch(plain, *args, params), 3)
     updates = grid.num_cells * len(views)
     rec["voxel_updates_per_s"] = updates / (rec["ms"] / 1e3)
     rec["plain_voxel_updates_per_s"] = updates / (rec["plain_ms"] / 1e3)
+    rec.update(integrate_roofline(grid.num_cells, len(views), grid.volume_shape,
+                                  depths.shape[1:], rec["ms"]))
     return rec, fused
+
+
+def integrate_cases():
+    """The integrate kernel's cases, ``(label, dims, origin, views)``: row
+    1's shape, 1080p maps, and an odd grid."""
+    # The odd grid's origin is offset like the repo's parity cases
+    # (scripts/tpu_validate.py), so that no voxel center of this symmetric
+    # rig sits on an exact half-pixel boundary, where float32 and float64
+    # may round to different pixels.
+    return [
+        ("512^3 x 32 views 512x512", (DIMS,) * 3, (-1.6,) * 3, orbit_views(32, MAP, MAP)),
+        ("256^3 x 8 views 1920x1080", (257,) * 3, (-1.6,) * 3,
+         orbit_views(8, 1920, 1080, focal=900.0)),
+        ("odd 100x66x44 x 12 views 320x240", (101, 67, 45), (-1.63, -1.61, -1.59),
+         orbit_views(12, 320, 240, focal=200.0)),
+    ]
+
+
+def integrate_shape():
+    """The launch shape the library's integrate kernel is built with: the
+    ``CDMI_INTEGRATE_*`` defaults of csrc/integrate.cu."""
+    from cudadepthmapintegration_torch.kernels._build import CSRC
+
+    text = (CSRC / "integrate.cu").read_text()
+    return {k.lower(): int(v) for k, v in re.findall(r"#define CDMI_INTEGRATE_(\w+) (\d+)", text)}
+
+
+def build_integrate_shapes(out_dir):
+    """Compile csrc/integrate.cu once per launch shape of ``SHAPE_KZS`` x
+    ``SHAPE_BLOCKS`` (``-D CDMI_INTEGRATE_*``), one nvcc each, all started
+    together. Returns ``{name: (C entry, registers, spill bytes)}``."""
+    import ctypes
+
+    from cudadepthmapintegration_torch.kernels import _build
+
+    src = str(_build.CSRC / "integrate.cu")
+    procs = {}
+    for kz in SHAPE_KZS:
+        for bx, by in SHAPE_BLOCKS:
+            name = f"kz{kz}_{bx}x{by}"
+            out = os.path.join(out_dir, f"integrate_{name}.so")
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DCDMI_INTEGRATE_KZ={kz}",
+                   f"-DCDMI_INTEGRATE_BLOCK_X={bx}", f"-DCDMI_INTEGRATE_BLOCK_Y={by}",
+                   "-shared", "-o", out, src]
+            procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc failed for {name}:\n{log}")
+        fn = ctypes.CDLL(out).cdmi_integrate
+        fn.argtypes = _build._ENTRIES["cdmi_integrate"]
+        fn.restype = ctypes.c_int
+        built[name] = (fn, int(re.findall(r"Used (\d+) registers", log)[-1]),
+                       sum(int(n) for n in re.findall(r"(\d+) bytes spill", log)))
+    return built
+
+
+def integrate_shapes_main() -> int:
+    """``--integrate-shapes``: every launch shape of the integrate kernel,
+    held to the plain version in bit patterns and timed on the integrate
+    cases, twice over (CUDA-event medians, the table staging included)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from cudadepthmapintegration_torch.core import RayPotential
+    from cudadepthmapintegration_torch.kernels._build import check
+    from cudadepthmapintegration_torch.kernels.integrate_cuda import (
+        integrate_views_torch,
+        stage_tables,
+    )
+    from cudadepthmapintegration_torch.ops.integrate import projection_tables
+
+    nvidia_smi()
+    params = RayPotential(thick=0.025, rho=0.8, eta=0.03, delta=0.1)
+    s = params.scalars()
+    with tempfile.TemporaryDirectory(prefix="cdmi_shapes_") as tmp:
+        t0 = time.perf_counter()
+        built = build_integrate_shapes(tmp)
+        emit(dict(phase="integrate_shapes_build", seconds=time.perf_counter() - t0,
+                  library_shape=integrate_shape(),
+                  registers={k: v[1] for k, v in built.items()},
+                  spill_bytes={k: v[2] for k, v in built.items()}))
+        for label, dims, origin, views in integrate_cases():
+            grid = cube_grid(dims, origin)
+            t = projection_tables(grid, views, np.float32)
+            depths = np.stack([v.depth for v in views]).astype(np.float32)
+            args = [torch.from_numpy(a).cuda() for a in (t.tx, t.ty, t.tz, t.tc, depths)]
+            plain = integrate_views_torch(torch.zeros(grid.volume_shape, device="cuda"),
+                                          *args, params)
+            (cz, cy, cx), (n, h, w) = grid.volume_shape, depths.shape
+            ms = {name: [] for name in built}
+            for _ in range(2):
+                for name, (fn, _, _) in built.items():
+                    def run(vol, fn=fn):
+                        tables = stage_tables(*args[:4])
+                        check(fn(vol.data_ptr(), *(a.data_ptr() for a in tables),
+                                 args[4].data_ptr(), n, cz, cy, cx, h, w, s["thick"], s["rho"],
+                                 s["delta"], s["rho_over_thick"], s["neg_eta_rho"], 0,
+                                 torch.cuda.current_stream().cuda_stream), name)
+
+                    vol = torch.zeros_like(plain)
+                    run(vol)
+                    torch.cuda.synchronize()
+                    if not same_bits(vol, plain):
+                        raise AssertionError(f"integrate shape {name} differs on {label}")
+                    ms[name].append(cuda_ms(lambda: run(vol), REPS))
+            emit(dict(phase="integrate_shapes", case=label, equal_bits=True, ms=ms,
+                      fastest=sorted(ms, key=lambda k: min(ms[k]))[:6]))
+            del args, plain, vol
+            torch.cuda.empty_cache()
+    return 0
 
 
 def mapping_scan_views(n, width, height, focal):
@@ -333,7 +546,7 @@ def integrate_modes_phase(params, orbit32):
     """Rows 3-6 of the kernel table: the JAX package's other kernel modes,
     each through the port's path at that mode's shapes. Every row drives its
     path with the launch count set to 0, then holds the kernel against its
-    plain version on the same inputs (``torch.equal``) and times both."""
+    plain version on the same inputs (bit patterns) and times both."""
     import torch
 
     from cudadepthmapintegration_torch.kernels import integrate_cuda
@@ -359,14 +572,14 @@ def integrate_modes_phase(params, orbit32):
     for p, args in zip(plain, staged):
         integrate_views_torch(p, *args, params)
     torch.cuda.synchronize()
-    equal = all(torch.equal(k, p) for k, p in zip(integ.slabs, plain))
+    equal = all(same_bits(k, p) for k, p in zip(integ.slabs, plain))
     rec = dict(row=3, mode="windows", replaces=f"{KERNEL_FILE}:1093",
                path="ShardedTSDFIntegrator.stage_pallas_views(mode='windows') on "
                     "make_mesh(n_z=4, devices=['cuda:0'] * 4)",
                cells=list(grid.volume_shape), views=len(orbit32), map=[MAP, MAP],
                launches=launches, kernel_equals_plain=equal,
                max_abs_err=max(float((k - p).abs().max()) for k, p in zip(integ.slabs, plain)),
-               slabs_equal_single_device=bool(np.array_equal(sharded, single)))
+               slabs_equal_single_device=same_bits(sharded, single))
     del single, sharded
     if not (equal and rec["slabs_equal_single_device"]) or launches != 4:
         emit(dict(phase="integrate_mode", **rec, ok=False))
@@ -374,6 +587,8 @@ def integrate_modes_phase(params, orbit32):
     rec["ms"] = cuda_ms(lambda: integ.run_staged_pallas(staged), REPS)
     rec["plain_ms"] = cuda_ms(lambda: [integrate_views_torch(p, *a, params)
                                        for p, a in zip(plain, staged)], 3)
+    rec.update(integrate_roofline(grid.num_cells, len(orbit32), grid.volume_shape, (MAP, MAP),
+                                  rec["ms"]))
     rows.append(rec)
     emit(dict(phase="integrate_mode", **rec, ok=True))
     del integ, plain, staged
@@ -399,7 +614,7 @@ def integrate_modes_phase(params, orbit32):
         del integ
         rec, fused = integrate_case(f"row {row} {label}", grid, views, params)
         rec.update(row=row, mode=mode, replaces=replaces, launches=launches,
-                   path="TSDFIntegrator.integrate", path_equals_kernel=bool(np.array_equal(path, fused)))
+                   path="TSDFIntegrator.integrate", path_equals_kernel=same_bits(path, fused))
         if row == 6:
             # The pixel-flip budget of docs/PARITY.md against the oracle.
             rec["oracle_off_frac"] = oracle_off_frac(grid, fused, views, params)
@@ -507,6 +722,34 @@ class _Timed:
         setattr(self.owner, self.name, self.orig)
 
 
+def cli_plain_phase(tmp, cfg, volume):
+    """The plain version on the card fuses the CLI's thresholded views in one
+    call; the CLI's volume (two kernel launches) must have its bits."""
+    import torch
+
+    from cudadepthmapintegration_torch.io import DepthMapDataset
+    from cudadepthmapintegration_torch.kernels.integrate_cuda import integrate_views_torch
+    from cudadepthmapintegration_torch.ops.integrate import projection_tables
+
+    t0 = time.perf_counter()
+    views = [v.thresholded(cfg.threshold_best_cost)
+             for v in DepthMapDataset.from_folder(tmp, "vtiList.txt", "kList.txt")]
+    grid = cfg.make_grid()
+    t = projection_tables(grid, views, np.float32)
+    depths = np.stack([v.depth for v in views]).astype(np.float32)
+    plain = torch.zeros(grid.volume_shape, device="cuda")
+    integrate_views_torch(plain, *(torch.from_numpy(a).cuda()
+                                   for a in (t.tx, t.ty, t.tz, t.tc, depths)),
+                          cfg.ray_potential())
+    plain = plain.cpu().numpy()
+    rec = dict(views=len(views), cells=list(grid.volume_shape), equal_bits=same_bits(volume, plain),
+               max_abs_err=float(np.abs(volume - plain).max()),
+               seconds=time.perf_counter() - t0)
+    emit(dict(phase="cli_plain", **rec, ok=rec["equal_bits"]))
+    if not rec["equal_bits"]:
+        raise AssertionError("the CLI's fused volume differs from the plain version")
+
+
 def checkpoint_phase(tmp, cli_args, plain_volume, captured):
     """``cudareconstruction --checkpoint``: an uninterrupted run in units of
     16 views, then a run preempted by a non-transient error in its third
@@ -545,8 +788,8 @@ def checkpoint_phase(tmp, cli_args, plain_volume, captured):
                volume_mb=run.volume.nbytes / 1e6, checkpoint_mb=os.path.getsize(ck) / 1e6,
                save_s=saves.seconds, reset_upload_s=uploads.seconds,
                result_download_s=downloads.seconds, host_snapshot_copy_s=snapshot_s,
-               equal_plain_cli=bool(np.array_equal(run.volume, plain_volume)),
-               checkpoint_equal_plain_cli=bool(np.array_equal(loaded.volume, plain_volume)))
+               equal_plain_cli=same_bits(run.volume, plain_volume),
+               checkpoint_equal_plain_cli=same_bits(loaded.volume, plain_volume))
     del loaded
 
     # Preempted: the third unit's integrate raises a TypeError, which the
@@ -583,7 +826,7 @@ def checkpoint_phase(tmp, cli_args, plain_volume, captured):
         raise AssertionError(f"the resumed reconstruct exited {rc}")
     rec.update(resumed_launches=integrate_cuda.launches, resumed_save_s=saves.seconds,
                resumed_fuse_s=captured[-1].execution_time,
-               resumed_equal_uninterrupted=bool(np.array_equal(captured[-1].volume, run.volume)),
+               resumed_equal_uninterrupted=same_bits(captured[-1].volume, run.volume),
                seconds=time.perf_counter() - t0)
     ok = (rec["units"] == [0, 1, 2, 3] and rec["equal_plain_cli"]
           and rec["checkpoint_equal_plain_cli"] and rec["launches"] == 4
@@ -638,10 +881,10 @@ def sharded_phase(tmp, params, contour):
     rec = dict(mesh="make_mesh(n_z=4, devices=['cuda:0'] * 4)", cells=list(grid.volume_shape),
                views=len(dataset), perm=list(grid_for_sharding(grid, dataset, 4)[1]),
                single_fuse_s=single_s, sharded_fuse_s=sharded_s, launches=launches,
-               pipeline_equal=bool(np.array_equal(sharded.result(), volume)))
+               pipeline_equal=same_bits(sharded.result(), volume))
     z_integ, rec["sharded_z_fuse_s"] = ReconstructionPipeline(
         cfg, mesh=mesh4, shard_axis="z").fuse(dataset)
-    rec["pipeline_z_equal"] = bool(np.array_equal(z_integ.result(), volume))
+    rec["pipeline_z_equal"] = same_bits(z_integ.result(), volume)
     del z_integ
 
     views = [v.thresholded(cfg.threshold_best_cost) for v in dataset]
@@ -654,8 +897,8 @@ def sharded_phase(tmp, params, contour):
         culled.integrate_pallas(b, frustum_cull=True)
         inter.integrate(b)
         vpar.integrate_view_parallel(b)
-    rec["frustum_cull_equal"] = bool(np.array_equal(culled.result(), volume))
-    rec["interleave_equal"] = bool(np.array_equal(inter.result(), volume))
+    rec["frustum_cull_equal"] = same_bits(culled.result(), volume)
+    rec["interleave_equal"] = same_bits(inter.result(), volume)
     vp_err = float(np.abs(vpar.result() - volume).max())
     rec.update(view_parallel_max_abs_err=vp_err, view_parallel_atol=VIEW_PARALLEL_ATOL)
     del culled, inter, vpar
@@ -809,11 +1052,7 @@ def main() -> int:
     from cudadepthmapintegration_torch.pipeline.reconstruction import ReconstructionPipeline
 
     # 1. Device.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit(dict(phase="device", name=name, count=torch.cuda.device_count(),
               torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi))
@@ -821,30 +1060,25 @@ def main() -> int:
     # 2. Build.
     t0 = time.perf_counter()
     _build.load_library()
+    spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", _build.BUILD.log))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               compiled=_build.BUILD.compiled, library=str(_build.BUILD.path),
-              spill_bytes=sum(int(n) for n in re.findall(r"(\d+) bytes spill", _build.BUILD.log)),
+              integrate_shape=integrate_shape(),
+              spill_bytes=spill,
               ptxas=[ln.strip() for ln in _build.BUILD.log.splitlines()
                      if "entry function" in ln or "registers" in ln or "spill" in ln]))
+    if _build.BUILD.compiled and spill:
+        raise AssertionError(f"ptxas spilled {spill} bytes")
 
     # 3. Integrate kernel vs plain version.
     t0 = time.perf_counter()
     bench = RayPotential(thick=0.025, rho=0.8, eta=0.03, delta=0.1)
-    # The odd grid's origin is offset like the repo's parity cases
-    # (scripts/tpu_validate.py), so that no voxel center of this symmetric
-    # rig sits on an exact half-pixel boundary, where float32 and float64
-    # may round to different pixels.
-    cases = [
-        ("512^3 x 32 views 512x512", (DIMS,) * 3, (-1.6,) * 3, orbit_views(32, MAP, MAP)),
-        ("256^3 x 8 views 1920x1080", (257,) * 3, (-1.6,) * 3,
-         orbit_views(8, 1920, 1080, focal=900.0)),
-        ("odd 100x66x44 x 12 views 320x240", (101, 67, 45), (-1.63, -1.61, -1.59),
-         orbit_views(12, 320, 240, focal=200.0)),
-    ]
+    cases = integrate_cases()
     records = []
     for label, dims, origin, views in cases:
         grid = cube_grid(dims, origin)
-        rec, vol = integrate_case(label, grid, views, bench)
+        rec, vol = integrate_case(label, grid, views, bench,
+                                  from_neg_zero=label.startswith("odd"))
         records.append(rec)
         emit(dict(phase="integrate", **rec, ok=True))
     # The odd grid against the float64 oracle: the pixel-flip budget of
@@ -891,12 +1125,19 @@ def main() -> int:
         n_valid += int(kv.sum())
         col_err = max(col_err, int((ks.int() - ps.int()).abs().max()))
     chunk = pts_d[:POINT_CHUNK]
+    chunk_valid = int(coloration_cuda.gather_colors_torch(chunk, proj, colors)[1].sum())
     col = dict(points=int(pts.shape[0]), views=N_VIEWS, chunk=POINT_CHUNK,
                valid_frac=n_valid / (pts.shape[0] * N_VIEWS), max_abs_err=col_err)
     col["ms"] = cuda_ms(lambda: coloration_cuda.gather_colors(chunk, proj, colors), REPS)
     col["plain_ms"] = cuda_ms(lambda: coloration_cuda.gather_colors_torch(chunk, proj, colors), REPS)
     col["samples_per_s"] = POINT_CHUNK * N_VIEWS / (col["ms"] / 1e3)
     col["plain_samples_per_s"] = POINT_CHUNK * N_VIEWS / (col["plain_ms"] / 1e3)
+    # The chunk's points and projections read once, the texels its valid
+    # samples gather (3 bytes each), the samples (3 bytes) and flags written.
+    samples = POINT_CHUNK * N_VIEWS
+    col.update(roofline(COLORATION_FLOPS * samples,
+                        12 * POINT_CHUNK + 48 * N_VIEWS + 3 * chunk_valid + 4 * samples,
+                        col["ms"]))
     emit(dict(phase="coloration", **col, seconds=time.perf_counter() - t0, ok=True))
     del pts_d, proj, colors
     torch.cuda.empty_cache()
@@ -928,11 +1169,12 @@ def main() -> int:
         ]
         # The CLIs run in process; keep each reconstruct run's result so
         # that the checkpoint phase can compare volumes.
-        captured = []
+        captured, configs = [], []
         pipeline_run = ReconstructionPipeline.run
 
         def capturing_run(self, *a, **k):
             captured.append(pipeline_run(self, *a, **k))
+            configs.append(self.config)
             return captured[-1]
 
         ReconstructionPipeline.run = capturing_run
@@ -987,9 +1229,12 @@ def main() -> int:
         if problems:
             raise AssertionError("; ".join(problems))
 
-        # 5b. Resumable fusion on the same dataset, against the CLI run above.
+        # The CLI's volume against the plain version on the card, bit for bit.
         plain_volume = captured.pop().volume
         del mesh, vol, radii, count
+        cli_plain_phase(tmp, configs[-1], plain_volume)
+
+        # 5b. Resumable fusion on the same dataset, against the CLI run above.
         checkpoint_phase(tmp, cli_args, plain_volume, captured)
         ReconstructionPipeline.run = pipeline_run
         del plain_volume
@@ -1012,29 +1257,32 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="cdmi_smoke_rgbd_") as tmp:
         launches["sparse_fuse"] = fuse_rgbd_phase(tmp)
 
+    def timing(rec):
+        # No single PyTorch call computes any of these functions.
+        return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share")} | {
+            "library_ms": None}
+
     main_case = records[0]
     emit({"kernels": [
         dict(name="integrate", route="cuda",
              source="cudadepthmapintegration_torch/csrc/integrate.cu",
              replaces="cudadepthmapintegration_tpu/kernels/integrate_pallas.py:925",
              launches=launches["integrate"],
-             max_abs_err=max(r["max_abs_err"] for r in records),
-             ms=main_case["ms"], plain_ms=main_case["plain_ms"]),
+             max_abs_err=max(r["max_abs_err"] for r in records), **timing(main_case)),
         *(dict(name=f"integrate[{r['mode']}]", route="cuda",
                source="cudadepthmapintegration_torch/csrc/integrate.cu",
                replaces=r["replaces"], launches=r["launches"], max_abs_err=r["max_abs_err"],
-               ms=r["ms"], plain_ms=r["plain_ms"]) for r in mode_rows),
+               **timing(r)) for r in mode_rows),
         dict(name="coloration", route="cuda",
              source="cudadepthmapintegration_torch/csrc/coloration.cu",
              replaces="cudadepthmapintegration_tpu/kernels/coloration_pallas.py:85",
-             launches=launches["coloration"], max_abs_err=col["max_abs_err"],
-             ms=col["ms"], plain_ms=col["plain_ms"]),
+             launches=launches["coloration"], max_abs_err=col["max_abs_err"], **timing(col)),
         dict(name="sparse_fuse", route="cuda",
              source="cudadepthmapintegration_torch/csrc/sparse_fuse.cu",
              replaces="cudadepthmapintegration_tpu/kernels/gather_points.py:35",
              launches=launches["sparse_fuse"],
              max_abs_err=max(max(sparse[c]["max_abs_err"].values()) for c in ("depth", "colour")),
-             ms=sparse["colour"]["ms"], plain_ms=sparse["colour"]["plain_ms"]),
+             **timing(sparse["colour"])),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -1044,4 +1292,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-worker"]:
         sys.exit(mp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:] == ["--integrate-shapes"]:
+        sys.exit(integrate_shapes_main())
     sys.exit(main())

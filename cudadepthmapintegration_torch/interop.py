@@ -74,7 +74,7 @@ def views_from(views: Iterable) -> list[DepthMapView]:
     return [view_from(v) for v in views]
 
 
-def sparse_grid_from(grid, device: str | torch.device = "cpu") -> SparseTSDFGrid:
+def sparse_grid_from(grid, device: str | torch.device = "cuda") -> SparseTSDFGrid:
     """A ``SparseTSDFGrid`` on ``device`` with the same configuration, block
     map, free list, slot cursor, frame count and pools (copied)."""
     out = SparseTSDFGrid(

@@ -7,7 +7,9 @@ views into a cell volume, in place. It replaces the Pallas kernels
 
 Dispatch: a CPU volume goes to :func:`integrate_views_torch`, the plain
 PyTorch version of the same function; a CUDA volume launches the kernel or
-raises. Nothing falls back from one to the other.
+raises. Nothing falls back from one to the other. The kernel reads the
+tables as :func:`stage_tables` re-lays them: float4 rows, ``tz + tc``
+added once per (view, k).
 
 Both versions follow the Pallas order of operations at ``view_block=1``,
 so on the same inputs they agree bit for bit:
@@ -26,7 +28,7 @@ import torch
 
 from ..core.ray_potential import RayPotential, ray_potential_torch
 
-__all__ = ["integrate_views", "integrate_views_torch", "launches"]
+__all__ = ["integrate_views", "integrate_views_torch", "launches", "stage_tables"]
 
 # Kernel launches by integrate_views since the counter was last set to 0.
 launches = 0
@@ -104,6 +106,27 @@ def integrate_views_torch(
     return volume
 
 
+def stage_tables(
+    tx: torch.Tensor, ty: torch.Tensor, tz: torch.Tensor, tc: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Re-lay the projection tables as the kernel reads them: one float4 row
+    per (view, index), ``(V, c, 4)``, each a fresh contiguous tensor.
+
+    Returns ``(tab_x, tab_y, tab_zc)`` with ``tab_zc = tz + tc``: the first
+    add of ``ty + (tx + (tz + tc))``, one correctly rounded add per (view,
+    k), as the plain version makes it, so no bit moves. One device op per
+    table.
+    """
+
+    def rows(t):
+        return torch.empty((t.shape[0], t.shape[2], 4), dtype=t.dtype, device=t.device)
+
+    tab_x = rows(tx).copy_(tx.transpose(1, 2))
+    tab_y = rows(ty).copy_(ty.transpose(1, 2))
+    tab_zc = torch.add(tz.transpose(1, 2), tc[:, None, :], out=rows(tz))
+    return tab_x, tab_y, tab_zc
+
+
 def integrate_views(
     volume: torch.Tensor,
     tx: torch.Tensor,
@@ -117,8 +140,10 @@ def integrate_views(
 
     A CPU volume runs :func:`integrate_views_torch`. A CUDA volume launches
     the kernel of ``csrc/integrate.cu`` on the current stream (one launch
-    for all views of the call) and counts it in :data:`launches`; it must be
-    float32 and contiguous, with every input on the same device.
+    for all views of the call, on tables re-laid by :func:`stage_tables`)
+    and counts it in :data:`launches`; the volume and the maps must be
+    float32 and contiguous, with every input on the same device. A launch
+    the card refuses (a volume past the launch grid) raises.
     """
     global launches
     if volume.device.type == "cpu":
@@ -128,14 +153,13 @@ def integrate_views(
     _check_args(volume, tx, ty, tz, tc, depths)
     if volume.dtype != torch.float32:
         raise ValueError(f"the integrate kernel takes float32, got {volume.dtype}")
-    for name, t in zip(("volume", "tx", "ty", "tz", "tc", "depths"),
-                       (volume, tx, ty, tz, tc, depths)):
+    for name, t in (("volume", volume), ("depths", depths)):
         if not t.is_contiguous():
             raise ValueError(f"the integrate kernel needs a contiguous {name}")
     n_views, h, w = depths.shape
     cz, cy, cx = volume.shape
-    if cz > 65535 or -(-cy // 8) > 65535:
-        raise ValueError(f"volume {tuple(volume.shape)} exceeds the launch grid")
+    if h * w >= 1 << 31:
+        raise ValueError(f"depth maps of {h}x{w} exceed the kernel's 2^31 pixels")
     from ._build import check, load_library
 
     lib = load_library()
@@ -144,11 +168,13 @@ def integrate_views(
     # The library sets the device it launches on; the guard restores the
     # caller's current device afterwards.
     with torch.cuda.device(dev):
+        tab_x, tab_y, tab_zc = stage_tables(tx, ty, tz, tc)
         err = lib.cdmi_integrate(
-            volume.data_ptr(), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
-            tc.data_ptr(), depths.data_ptr(), n_views, cz, cy, cx, h, w,
+            volume.data_ptr(), tab_x.data_ptr(), tab_y.data_ptr(),
+            tab_zc.data_ptr(), depths.data_ptr(), n_views, cz, cy, cx, h, w,
             s["thick"], s["rho"], s["delta"], s["rho_over_thick"],
-            s["neg_eta_rho"], dev, torch.cuda.current_stream(dev).cuda_stream,
+            s["neg_eta_rho"], dev,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check(err, "cdmi_integrate")
     launches += 1

@@ -98,7 +98,7 @@ def colorize_points(
     dtype=torch.float32,
     compat_int_mean: bool = False,
     occlusion_tol: float | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Color statistics for (N, 3) world points against all views.
 
@@ -182,7 +182,7 @@ def colorize_mesh(
     dtype=torch.float32,
     compat_int_mean: bool = False,
     occlusion_tol: float | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> PolyData:
     """Attach MeanColoration / MedianColoration / NbProjectedDepthMap arrays
     (names per ``MeshColoration.cxx:113-133``) to a copy of `mesh`."""

@@ -84,7 +84,7 @@ class TSDFIntegrator:
         grid: VoxelGrid,
         params: RayPotential,
         dtype=torch.float32,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.grid = grid
         self.params = params

@@ -82,7 +82,7 @@ class SparseTSDFGrid:
         capacity: int = 1 << 14,
         pixel_stride: int = 4,
         with_color: bool = False,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.voxel_size = float(voxel_size)
         self.params = params
@@ -154,7 +154,7 @@ class SparseTSDFGrid:
         os.replace(tmp, path)
 
     @classmethod
-    def load(cls, path: str, device: str | torch.device = "cpu"):
+    def load(cls, path: str, device: str | torch.device = "cuda"):
         """Restore a :meth:`save` checkpoint (of either package) onto
         ``device``. Returns ``(grid, extra)``."""
         with np.load(path, allow_pickle=False) as z:

@@ -69,7 +69,7 @@ def make_integrate_fn(flaky_failures=0):
         if state["fails_left"] > 0:
             state["fails_left"] -= 1
             raise RuntimeError("injected transient failure")
-        integ = TI.TSDFIntegrator(grid, T_PARAMS, dtype=torch.float64).reset(volume)
+        integ = TI.TSDFIntegrator(grid, T_PARAMS, dtype=torch.float64, device="cpu").reset(volume)
         return integ.integrate(batch).result()
 
     return integrate_fn

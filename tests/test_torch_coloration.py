@@ -65,7 +65,7 @@ def _assert_stats_equal(got, exp):
 def test_statistics_equal_pallas(z_test):
     views, pts = scene(), points()
     exp = colorize_points(pts, views, z_test=z_test, backend="pallas")
-    got = t_colorize_points(pts, interop.views_from(views), z_test=z_test)
+    got = t_colorize_points(pts, interop.views_from(views), z_test=z_test, device="cpu")
     assert (exp[2] > 0).any() and (exp[2] == 0).any()
     _assert_stats_equal(got, exp)
 
@@ -75,7 +75,7 @@ def test_statistics_equal_pallas(z_test):
 def test_statistics_equal_xla(z_test, dtype):
     views, pts = scene(), points(seed=2)
     exp = colorize_points(pts, views, z_test=z_test, backend="xla", dtype=np.dtype(dtype))
-    got = t_colorize_points(pts, interop.views_from(views), z_test=z_test, dtype=dtype)
+    got = t_colorize_points(pts, interop.views_from(views), z_test=z_test, dtype=dtype, device="cpu")
     _assert_stats_equal(got, exp)
 
 
@@ -83,17 +83,17 @@ def test_occlusion_tol_equals_xla():
     views = scene()
     pts = points(seed=3, spread=3.0)
     exp = colorize_points(pts, views, backend="xla", occlusion_tol=0.2)
-    got = t_colorize_points(pts, interop.views_from(views), occlusion_tol=0.2)
+    got = t_colorize_points(pts, interop.views_from(views), occlusion_tol=0.2, device="cpu")
     _assert_stats_equal(got, exp)
     # The test rejected some samples, so it ran.
-    assert (got[2] < t_colorize_points(pts, interop.views_from(views))[2]).any()
+    assert (got[2] < t_colorize_points(pts, interop.views_from(views), device="cpu")[2]).any()
 
 
 def test_chunks_do_not_change_values():
     views = interop.views_from(scene(5))
     pts = points(seed=4)
-    ref = t_colorize_points(pts, views)
-    got = t_colorize_points(pts, views, chunk=97, view_chunk=2)
+    ref = t_colorize_points(pts, views, device="cpu")
+    got = t_colorize_points(pts, views, chunk=97, view_chunk=2, device="cpu")
     _assert_stats_equal(got, ref)
 
 
@@ -118,7 +118,7 @@ def test_colorize_mesh_attaches_arrays():
     views = scene(3)
     mesh = PolyData(points(seed=6, spread=2.5), np.zeros((0, 3), np.int64))
     mesh.point_data["Normals"] = np.ones((mesh.num_points, 3), np.float32)
-    out = t_colorize_mesh(mesh, interop.views_from(views))
+    out = t_colorize_mesh(mesh, interop.views_from(views), device="cpu")
     exp = colorize_points(mesh.points, views, backend="pallas")
     for name, arr in zip(("MeanColoration", "MedianColoration", "NbProjectedDepthMap"), exp):
         np.testing.assert_array_equal(out.point_data[name], arr)
@@ -128,4 +128,4 @@ def test_colorize_mesh_attaches_arrays():
 
 def test_no_views_raises():
     with pytest.raises(ValueError, match="no views"):
-        t_colorize_points(points(), [])
+        t_colorize_points(points(), [], device="cpu")

@@ -105,7 +105,7 @@ def _worker() -> int:
         if role == "crash" and proc == 1 and done:
             os._exit(17)  # simulated preemption after one unit (no cleanup)
         done.append(next(i for i, v in enumerate(views) if v is batch[0]) // 2)
-        integ = TSDFIntegrator(grid, params, dtype=torch.float64).reset(volume)
+        integ = TSDFIntegrator(grid, params, dtype=torch.float64, device="cpu").reset(volume)
         return integ.integrate(batch).result()
 
     runner = FaultTolerantRunner(grid, params, integrate_fn, unit_size=2,

@@ -85,7 +85,7 @@ def narrow_views():
 
 
 def single(grid, views, dtype=torch.float32, threshold=None):
-    return (TorchIntegrator(interop.grid_from(grid), T_PARAMS, dtype=dtype).reset()
+    return (TorchIntegrator(interop.grid_from(grid), T_PARAMS, dtype=dtype, device="cpu").reset()
             .integrate(interop.views_from(views), threshold).result())
 
 
@@ -200,7 +200,7 @@ def test_staged_batch_reruns_and_shares_uploads():
     assert len({a[4].data_ptr() for a in staged}) == 1
     assert all(a[2].is_contiguous() and a[2].shape == (3, 4, 4) for a in staged)
     integ.run_staged_pallas(staged).run_staged_pallas(staged)
-    twice = TorchIntegrator(interop.grid_from(grid16()), T_PARAMS).reset()
+    twice = TorchIntegrator(interop.grid_from(grid16()), T_PARAMS, device="cpu").reset()
     twice.integrate(views).integrate(views)
     np.testing.assert_array_equal(integ.result(), twice.result())
 
@@ -355,7 +355,7 @@ def test_sharded_coloration_equals_dense_and_jax(n_z, n_v):
     pts /= np.linalg.norm(pts, axis=1, keepdims=True)
     t_views = interop.views_from(views)
     got = sharded_colorize_points(pts, t_views, cpu_mesh(n_z, n_v), view_chunk=2)
-    exp = colorize_points(pts, t_views, view_chunk=2)
+    exp = colorize_points(pts, t_views, view_chunk=2, device="cpu")
     for a, b in zip(got, exp):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
@@ -436,7 +436,7 @@ def test_pipeline_auto_axis_composes_with_checkpoint(tmp_path):
         calls["n"] += 1
         if calls["n"] > 1:
             raise RuntimeError("host died")
-        integ = TorchIntegrator(grid, params, dtype=torch.float64).reset(volume)
+        integ = TorchIntegrator(grid, params, dtype=torch.float64, device="cpu").reset(volume)
         return integ.integrate(batch, cfg.threshold_best_cost).result()
 
     r1 = FaultTolerantRunner(grid, params, crashy, unit_size=2, max_retries=1,

@@ -48,7 +48,7 @@ def grids(views, jax_backend="xla", **kw):
     """A JAX grid and the port's grid, both fed ``views``."""
     kw = dict(voxel_size=0.08, params=PARAMS, pixel_stride=2, **kw)
     jgrid = JaxGrid(gather_backend=jax_backend, **kw)
-    tgrid = SparseTSDFGrid(**{**kw, "params": T_PARAMS})
+    tgrid = SparseTSDFGrid(**{**kw, "params": T_PARAMS}, device="cpu")
     for v in views:
         jgrid.integrate_frame(v)
         tgrid.integrate_frame(interop.view_from(v))
@@ -137,7 +137,7 @@ def test_grid_matches_jax(jax_backend):
 
 def test_dense_matches_float64_oracle():
     views = sphere_scene(n_views=4, width=96, height=72, focal=80.0)
-    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS, pixel_stride=2)
+    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS, pixel_stride=2, device="cpu")
     for v in interop.views_from(views):
         sparse.integrate_frame(v)
     assert sparse.num_allocated > 10 and sparse.frames_fused == 4
@@ -158,7 +158,7 @@ def test_carving_applies_empty_space_votes_to_earlier_blocks():
     wall = interop.view_from(wall_view((0.0, -4.0, 0.0)))
     dense = {}
     for carve in (True, False):
-        g = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS, pixel_stride=2)
+        g = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS, pixel_stride=2, device="cpu")
         g.preallocate([sphere])  # the wall's band (far plane) stays unallocated
         g.integrate_frame(sphere, carve=carve)
         g.integrate_frame(wall, carve=carve)
@@ -173,7 +173,7 @@ def test_carving_applies_empty_space_votes_to_earlier_blocks():
 
 def test_capacity_exhaustion_raises():
     view = interop.view_from(sphere_scene(n_views=1, width=64, height=48)[0])
-    sparse = SparseTSDFGrid(voxel_size=0.05, params=T_PARAMS, capacity=4)
+    sparse = SparseTSDFGrid(voxel_size=0.05, params=T_PARAMS, capacity=4, device="cpu")
     with pytest.raises(RuntimeError, match="capacity"):
         sparse.integrate_frame(view)
 
@@ -181,7 +181,7 @@ def test_capacity_exhaustion_raises():
 def test_empty_frame_is_noop():
     view = interop.view_from(sphere_scene(n_views=1, width=64, height=48)[0])
     view.depth[:] = -1.0
-    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS)
+    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS, device="cpu")
     sparse.integrate_frame(view)
     assert sparse.num_allocated == 0 and sparse.frames_fused == 0
     assert not sparse.pool.any()
@@ -236,7 +236,7 @@ def test_extract_mesh_matches_jax_on_identical_state():
                     gather_backend="xla")
     for v in views:
         jgrid.integrate_frame(v)
-    tgrid = interop.sparse_grid_from(jgrid)
+    tgrid = interop.sparse_grid_from(jgrid, device="cpu")
     exp = jgrid.extract_mesh(iso=1.0, backend="jax")
     got = tgrid.extract_mesh(iso=1.0)
     assert got.num_triangles == exp.num_triangles > 100
@@ -257,7 +257,7 @@ def test_extract_mesh_matches_jax_on_identical_state():
 def test_per_block_mesh_has_no_allocation_boundary_junk():
     """A carved (all-negative) block next to unallocated space emits
     nothing at iso=0: the fabricated 0.0 of unallocated cells is not data."""
-    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS)
+    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS, device="cpu")
     sparse._allocate([(0, 0, 0), (2, 2, 2)])
     sparse.pool[:2] = -1.0
     mesh = sparse.extract_mesh(iso=0.0)
@@ -276,9 +276,9 @@ def test_checkpoint_resumes_in_the_other_package(tmp_path, writer):
             src.integrate_frame(v)
         src._free_slots.append(src.block_map.pop(sorted(src.block_map)[0]))
         src.save(path, extra={"next_index": 7})
-        dst, extra = SparseTSDFGrid.load(path)
+        dst, extra = SparseTSDFGrid.load(path, device="cpu")
     else:
-        src = SparseTSDFGrid(params=T_PARAMS, **kw)
+        src = SparseTSDFGrid(params=T_PARAMS, **kw, device="cpu")
         for v in interop.views_from(views):
             src.integrate_frame(v)
         src.evict_blocks([sorted(src.block_map)[0]])
@@ -297,7 +297,7 @@ def test_checkpoint_resumes_in_the_other_package(tmp_path, writer):
 
 
 def test_vertex_colors_requires_with_color():
-    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS)
+    sparse = SparseTSDFGrid(voxel_size=0.1, params=T_PARAMS, device="cpu")
     with pytest.raises(ValueError, match="with_color"):
         sparse.vertex_colors(np.zeros((1, 3)))
 
