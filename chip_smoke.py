@@ -38,16 +38,28 @@ same work, the larger of its FLOPs over the FP32 peak and its bytes (each
 input read once, each output written once) over the HBM rate, with the
 share of it the kernel reached.
 
+The coloration gather is also held to its plain version with ``z_test``,
+with the occlusion test and on samples that miss every view (phase
+``coloration_masks``), and ``colorize --occlusionTol`` runs both coloration
+kernels (phase ``cli_occlusion``).
+
 Every phase prints one JSON line. The line before the last holds the
 kernels' record (launches counted during each kernel's CLI run only, errors,
-bounds and CUDA-event times measured here); the last line is
-``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
-non-zero without that line. It needs no network and imports no JAX.
+bounds and CUDA-event times of one call measured here; the coloration
+records carry the card's own time, ``device_ms``, beside them); the last
+line is ``{"ok": true, "device": {...}}``. Any failure raises, and the
+script exits non-zero without that line. It needs no network and imports no
+JAX.
 
 ``python3 chip_smoke.py --integrate-shapes`` does one thing only: it builds
 ``csrc/integrate.cu`` once per launch shape (voxels a thread along z, block
 shape), holds each build to the plain version bit for bit and times it on
-the integrate cases. The library itself is built with one shape.
+the integrate cases. ``python3 chip_smoke.py --coloration-shapes`` does the
+same for ``csrc/coloration.cu`` (views a gather thread, threads a block of
+each kernel) on one vertex chunk of the coloration phase. The library
+itself is built with one shape. ``python3 chip_smoke.py --gather-ab DIR``
+times the coloration gather of the checkout unpacked in ``DIR`` against
+this checkout's, each built from its own sources in a process of its own.
 """
 
 from __future__ import annotations
@@ -98,6 +110,9 @@ INTEGRATE_FLOPS = 17
 # a coloration (vertex, view) sample: 3 rows x (3 multiplies + 3 adds), 2
 # divisions, 2 x 2 for the roundings;
 COLORATION_FLOPS = 24
+# a sample of the colour statistics: the count, three sums and one
+# selection step a channel (integer operations, taken at the FP32 rate);
+STATS_OPS = 7
 # a sparse voxel update: 4 rows x (3 multiplies + 3 adds), 2 divisions,
 # 2 x 2 for the roundings, 3 for the potential and the accumulate; with
 # colour 11 more (a division, the falloff, 3 multiply-adds, the weight).
@@ -107,6 +122,21 @@ NEG_ZERO = -(1 << 31)  # the int32 bits of -0.0
 # voxels a thread along z, and threads a block along x and y.
 SHAPE_KZS = (1, 2, 4, 8, 16)
 SHAPE_BLOCKS = ((32, 4), (32, 8), (16, 8), (8, 16))
+# The launch shapes `--coloration-shapes` builds csrc/coloration.cu with:
+# (views a gather thread, gather threads a block, statistics threads a
+# block, words a statistics thread loads ahead); the statistics shapes ride
+# on the library's gather shape.
+COLOR_SHAPES = (*((g, t, 128, 8) for g in (1, 2, 4, 8, 16) for t in (128, 256)),
+                *((8, 256, st, b) for st in (64, 128) for b in (1, 4, 16, 32)), (8, 256, 64, 8),
+                (8, 256, 256, 8))
+# Crafted sample columns straight into the statistics: (views, vertices),
+# every column kind in each: few views, then 1,000 views (bin counts past
+# 255) and 65,535 views (a bin of 65,535 samples), ~260 MB of words each.
+STATS_CASES = ((1, 7 * 96), (2, 7 * 96), (17, 7 * 96), (300, 7 * 96), (1000, 65536),
+               (65535, 1024))
+# The occlusion tolerance of the gather's card cases and of the colorize
+# run with --occlusionTol: 8 voxels of the main path's grid.
+OCCLUSION_TOL = 0.05
 
 
 def emit(record: dict) -> None:
@@ -128,6 +158,27 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds the card spends in the kernels and copies of one
+    ``fn()``: their device times under ``torch.profiler`` summed over
+    ``reps`` runs after one warm-up, divided by ``reps``. Unlike
+    :func:`cuda_ms`, it leaves out the time the card waits for the host to
+    launch, which dominates a call of a few tens of microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / reps / 1e3
 
 
 def roofline(flops, nbytes, ms):
@@ -280,7 +331,8 @@ def fuse_rgbd_phase(tmp):
 
     out = os.path.join(tmp, "fused.vtp")
     log = Log(verbose=True, stream=io.StringIO())
-    integrate_cuda.launches = coloration_cuda.launches = sparse_cuda.launches = 0
+    integrate_cuda.launches = sparse_cuda.launches = 0
+    coloration_cuda.launches = coloration_cuda.stats_launches = 0
     t0 = time.perf_counter()
     rc = fuse_rgbd.main([
         "--vti", lists["vti"], "--krtd", lists["krtd"], "--onlineColor", "--device", "cuda",
@@ -410,45 +462,56 @@ def integrate_cases():
     ]
 
 
-def integrate_shape():
-    """The launch shape the library's integrate kernel is built with: the
-    ``CDMI_INTEGRATE_*`` defaults of csrc/integrate.cu."""
+def library_shape(source):
+    """The launch shape the library builds ``csrc/<source>`` with: the
+    ``#define CDMI_*`` defaults of the file."""
     from cudadepthmapintegration_torch.kernels._build import CSRC
 
-    text = (CSRC / "integrate.cu").read_text()
-    return {k.lower(): int(v) for k, v in re.findall(r"#define CDMI_INTEGRATE_(\w+) (\d+)", text)}
+    text = (CSRC / source).read_text()
+    return {k.lower(): int(v) for k, v in re.findall(r"#define CDMI_(\w+) (\d+)", text)}
 
 
-def build_integrate_shapes(out_dir):
-    """Compile csrc/integrate.cu once per launch shape of ``SHAPE_KZS`` x
-    ``SHAPE_BLOCKS`` (``-D CDMI_INTEGRATE_*``), one nvcc each, all started
-    together. Returns ``{name: (C entry, registers, spill bytes)}``."""
+def build_shapes(source, shapes, out_dir):
+    """Compile ``csrc/<source>`` once per entry of ``shapes`` (``{name:
+    {macro: value}}``, passed as ``-D``), one nvcc each, all started
+    together. Returns ``{name: (library, nvcc's output)}``, each library's
+    C entries typed as ``kernels/_build.py`` types them."""
     import ctypes
 
     from cudadepthmapintegration_torch.kernels import _build
 
-    src = str(_build.CSRC / "integrate.cu")
+    src = str(_build.CSRC / source)
     procs = {}
-    for kz in SHAPE_KZS:
-        for bx, by in SHAPE_BLOCKS:
-            name = f"kz{kz}_{bx}x{by}"
-            out = os.path.join(out_dir, f"integrate_{name}.so")
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DCDMI_INTEGRATE_KZ={kz}",
-                   f"-DCDMI_INTEGRATE_BLOCK_X={bx}", f"-DCDMI_INTEGRATE_BLOCK_Y={by}",
-                   "-shared", "-o", out, src]
-            procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True))
+    for name, defines in shapes.items():
+        out = os.path.join(out_dir, f"{name}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines.items()),
+               "-shared", "-o", out, src]
+        procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (out, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise AssertionError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(out).cdmi_integrate
-        fn.argtypes = _build._ENTRIES["cdmi_integrate"]
-        fn.restype = ctypes.c_int
-        built[name] = (fn, int(re.findall(r"Used (\d+) registers", log)[-1]),
-                       sum(int(n) for n in re.findall(r"(\d+) bytes spill", log)))
+        lib = ctypes.CDLL(out)
+        for entry, argtypes in _build._ENTRIES.items():
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
+        built[name] = (lib, log)
     return built
+
+
+def build_integrate_shapes(out_dir):
+    """csrc/integrate.cu at every launch shape of ``SHAPE_KZS`` x
+    ``SHAPE_BLOCKS`` (``-D CDMI_INTEGRATE_*``). Returns ``{name: (C entry,
+    registers, spill bytes)}``."""
+    shapes = {f"kz{kz}_{bx}x{by}": {"CDMI_INTEGRATE_KZ": kz, "CDMI_INTEGRATE_BLOCK_X": bx,
+                                    "CDMI_INTEGRATE_BLOCK_Y": by}
+              for kz in SHAPE_KZS for bx, by in SHAPE_BLOCKS}
+    return {name: (lib.cdmi_integrate, int(re.findall(r"Used (\d+) registers", log)[-1]),
+                   sum(int(n) for n in re.findall(r"(\d+) bytes spill", log)))
+            for name, (lib, log) in build_shapes("integrate.cu", shapes, out_dir).items()}
 
 
 def integrate_shapes_main() -> int:
@@ -475,7 +538,7 @@ def integrate_shapes_main() -> int:
         t0 = time.perf_counter()
         built = build_integrate_shapes(tmp)
         emit(dict(phase="integrate_shapes_build", seconds=time.perf_counter() - t0,
-                  library_shape=integrate_shape(),
+                  library_shape=library_shape("integrate.cu"),
                   registers={k: v[1] for k, v in built.items()},
                   spill_bytes={k: v[2] for k, v in built.items()}))
         for label, dims, origin, views in integrate_cases():
@@ -506,6 +569,131 @@ def integrate_shapes_main() -> int:
                       fastest=sorted(ms, key=lambda k: min(ms[k]))[:6]))
             del args, plain, vol
             torch.cuda.empty_cache()
+    return 0
+
+
+def build_coloration_shapes(out_dir):
+    """csrc/coloration.cu at every launch shape of ``COLOR_SHAPES``. Returns
+    ``{name: (gather entry, statistics entry, ptxas lines)}``."""
+    shapes = {f"v{g}_{t}_s{st}_b{sb}": {"CDMI_COLOR_VIEWS": g, "CDMI_COLOR_THREADS": t,
+                                        "CDMI_STATS_THREADS": st, "CDMI_STATS_BATCH": sb}
+              for g, t, st, sb in COLOR_SHAPES}
+    return {name: (lib.cdmi_gather_colors, lib.cdmi_color_stats,
+                   [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
+            for name, (lib, log) in build_shapes("coloration.cu", shapes, out_dir).items()}
+
+
+def coloration_shapes_main() -> int:
+    """``--coloration-shapes``: every launch shape of the coloration kernels
+    on the coloration phase's first vertex chunk, each build's words and
+    statistics held to the plain versions and timed (device time,
+    :func:`device_ms`), twice over."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from cudadepthmapintegration_torch.kernels import coloration_cuda as cc
+    from cudadepthmapintegration_torch.kernels._build import check
+    from cudadepthmapintegration_torch.ops.coloration import POINT_CHUNK
+
+    nvidia_smi()
+    pts_d, proj, texels = coloration_inputs(orbit_views(N_VIEWS, MAP, MAP))
+    chunk = pts_d[:POINT_CHUNK].contiguous()
+    n, n_views = chunk.shape[0], proj.shape[0]
+    h, w = texels.shape[1:]
+    plain_words = cc.gather_colors_torch(chunk, proj, texels)
+    plain_stats = cc.color_stats_torch(plain_words)
+    with tempfile.TemporaryDirectory(prefix="cdmi_shapes_") as tmp:
+        t0 = time.perf_counter()
+        built = build_coloration_shapes(tmp)
+        emit(dict(phase="coloration_shapes_build", seconds=time.perf_counter() - t0,
+                  library_shape=library_shape("coloration.cu"),
+                  ptxas={k: v[2] for k, v in built.items()}))
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = {name: {"gather": [], "stats": []} for name in built}
+        for _ in range(2):
+            for name, (gather, stats, _) in built.items():
+                words = torch.empty_like(plain_words)
+                buf = torch.empty_like(plain_stats)
+                mean, median, count = cc.split_stats(buf)
+
+                def run_gather(gather=gather, words=words):
+                    check(gather(chunk.data_ptr(), proj.data_ptr(), texels.data_ptr(), None,
+                                 words.data_ptr(), n, n_views, h, w, 0, 0.0, 0, stream), name)
+
+                def run_stats(stats=stats, words=words, mean=mean, median=median, count=count):
+                    check(stats(words.data_ptr(), n, mean.data_ptr(), median.data_ptr(),
+                                count.data_ptr(), n, n_views, 0, stream), name)
+
+                run_gather()
+                run_stats()
+                torch.cuda.synchronize()
+                if not (torch.equal(words, plain_words) and torch.equal(buf, plain_stats)):
+                    raise AssertionError(f"coloration shape {name} differs from the plain versions")
+                ms[name]["gather"].append(device_ms(run_gather, REPS))
+                ms[name]["stats"].append(device_ms(run_stats, REPS))
+        emit(dict(phase="coloration_shapes", vertices=n, views=n_views, equal=True, ms=ms,
+                  fastest_gather=sorted(ms, key=lambda k: min(ms[k]["gather"]))[:4],
+                  fastest_stats=sorted(ms, key=lambda k: min(ms[k]["stats"]))[:4]))
+    return 0
+
+
+def gather_time_main(root) -> int:
+    """``--gather-time ROOT``: the coloration gather of the package under
+    ``ROOT`` (this checkout or another one), built from that checkout's
+    sources, timed on the coloration phase's first vertex chunk: device
+    time (:func:`device_ms`) and a call's CUDA-event time. Takes either
+    gather: the packed-word one (``stage_texels``) or the byte-a-channel one
+    before it, which returned samples and a mask."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import coloration_cuda as cc
+    from cudadepthmapintegration_torch.ops.coloration import POINT_CHUNK
+
+    views = orbit_views(N_VIEWS, MAP, MAP)
+    proj = torch.from_numpy(np.stack(
+        [(v.camera.k4 @ v.camera.rt)[:3, :] for v in views]).astype(np.float32)).cuda()
+    colors = torch.from_numpy(np.stack([v.color for v in views])).cuda()
+    chunk = torch.from_numpy(sphere_points(1 << 20)[:POINT_CHUNK]).cuda()
+    if hasattr(cc, "stage_texels"):
+        texels = cc.stage_texels(colors)
+        words = cc.gather_colors(chunk, proj, texels)
+
+        def run():
+            cc.gather_colors(chunk, proj, texels, out=words)
+    else:
+        def run():
+            cc.gather_colors(chunk, proj, colors)
+    emit(dict(phase="gather_time", package=os.path.dirname(cc.__file__),
+              packed=hasattr(cc, "stage_texels"), device_ms=device_ms(run, REPS),
+              call_ms=cuda_ms(run, REPS)))
+    return 0
+
+
+def gather_ab_main(parent_root) -> int:
+    """``--gather-ab PARENT_ROOT``: the coloration gather of another
+    checkout (unpacked under ``PARENT_ROOT``) against this one's, each in a
+    process of its own (:func:`gather_time_main`), in the order parent,
+    this, this, parent."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    nvidia_smi()
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for label, root in (("parent", parent_root), ("this", here), ("this", here),
+                        ("parent", parent_root)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--gather-time", root],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"--gather-time {root} exited {proc.returncode}")
+        runs.append(dict(label=label, **json.loads(proc.stdout.strip().splitlines()[-1])))
+    emit(dict(phase="gather_ab", runs=runs))
     return 0
 
 
@@ -919,13 +1107,14 @@ def sharded_phase(tmp, params, contour):
                mesh_triangles_equal=bool(np.array_equal(dist.triangles, dense.triangles)),
                mesh_normals_equal=bool(np.array_equal(dist.point_data["Normals"],
                                                       dense.point_data["Normals"])))
-    coloration_cuda.launches = 0
+    coloration_cuda.launches = coloration_cuda.stats_launches = 0
     t1 = time.perf_counter()
     got = sharded_colorize_points(dist.points, views, mesh4)
     rec["sharded_colorize_s"] = time.perf_counter() - t1
     col_launches = coloration_cuda.launches
+    stats_launches = coloration_cuda.stats_launches
     exp = colorize_points(dist.points, views, device="cuda")
-    rec.update(coloration_launches=col_launches,
+    rec.update(coloration_launches=col_launches, coloration_stats_launches=stats_launches,
                coloration_equal=all(bool(np.array_equal(a, b)) for a, b in zip(got, exp)),
                seconds=time.perf_counter() - t0)
     ok = (rec["pipeline_equal"] and rec["pipeline_z_equal"] and rec["frustum_cull_equal"]
@@ -933,7 +1122,8 @@ def sharded_phase(tmp, params, contour):
           and vp_err <= VIEW_PARALLEL_ATOL and rec["cell_to_point_equal"]
           and dist.num_triangles == dense.num_triangles > 0 and rec["mesh_points_equal"]
           and rec["mesh_triangles_equal"] and rec["mesh_normals_equal"]
-          and rec["coloration_equal"] and launches == 8 and col_launches > 0)
+          and rec["coloration_equal"] and launches == 8 and col_launches > 0
+          and stats_launches > 0)
     emit(dict(phase="sharded", **rec, ok=ok))
     if not ok:
         raise AssertionError("multi-device fusion is off")
@@ -1035,6 +1225,256 @@ def multiprocess_phase():
         raise AssertionError("multi-process fusion is off")
 
 
+def sphere_points(n):
+    """``n`` points on the unit sphere from seed 0, in raster (z, y, x) order
+    like a mesh's vertices."""
+    rng = np.random.default_rng(0)
+    pts = rng.standard_normal((n, 3))
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    return pts[np.lexsort(pts.T)].astype(np.float32)
+
+
+def coloration_inputs(views):
+    """The coloration phase's inputs on the card: 2^20 sphere points, the
+    views' projection rows and their colours staged as RGBX words."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels.coloration_cuda import stage_texels
+
+    proj = torch.from_numpy(np.stack(
+        [(v.camera.k4 @ v.camera.rt)[:3, :] for v in views]).astype(np.float32)).cuda()
+    texels = stage_texels(torch.from_numpy(np.stack([v.color for v in views])).cuda())
+    return torch.from_numpy(sphere_points(1 << 20)).cuda(), proj, texels
+
+
+def coloration_phase(views):
+    """Both coloration kernels against their plain versions on every vertex
+    chunk of 2^20 sphere points x the views: the gather word for word, the
+    statistics byte for byte (the plain statistics are PR 4's route's
+    reductions: int64 sums, float64 mean, sort-based median). Returns the
+    phase record and the inputs."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import coloration_cuda as cc
+    from cudadepthmapintegration_torch.ops.coloration import POINT_CHUNK
+
+    t0 = time.perf_counter()
+    pts_d, proj, texels = coloration_inputs(views)
+    n_views = proj.shape[0]
+    n_valid, max_err = 0, 0
+    for s in range(0, pts_d.shape[0], POINT_CHUNK):
+        chunk = pts_d[s : s + POINT_CHUNK]
+        kw = cc.gather_colors(chunk, proj, texels)
+        pw = cc.gather_colors_torch(chunk, proj, texels)
+        ks, ps = cc.color_stats(kw), cc.color_stats_torch(kw)
+        checks = dict(gather_equal=torch.equal(kw, pw), stats_equal=torch.equal(ks, ps))
+        if not all(checks.values()):
+            emit(dict(phase="coloration", chunk=s, **checks,
+                      words_differ=int((kw != pw).sum()), ok=False))
+            raise AssertionError(f"coloration kernels differ from their plain versions ({checks})")
+        n_valid += int((kw != 0).sum())
+        max_err = max(max_err, int((kw.long() - pw.long()).abs().max()),
+                      int((ks.int() - ps.int()).abs().max()))
+    col = dict(points=int(pts_d.shape[0]), views=n_views, chunk=POINT_CHUNK,
+               valid_frac=n_valid / (pts_d.shape[0] * n_views), max_abs_err=max_err,
+               seconds=time.perf_counter() - t0)
+    return col, (pts_d[:POINT_CHUNK], proj, texels)
+
+
+def coloration_masks_phase(views, inputs):
+    """The gather's rejections on the card: 65,536 points spread over a cube
+    of side 10 around the sphere (off-image, behind cameras at radius 4,
+    inside the sphere), gathered with and without ``z_test`` and with and
+    without the views' depth maps (the occlusion test, -1 where a map has no
+    depth), each held word for word to the plain gather and its statistics
+    to the plain statistics. Returns the largest error."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import coloration_cuda as cc
+    from cudadepthmapintegration_torch.ops.coloration import POINT_CHUNK
+
+    t0 = time.perf_counter()
+    _, proj, texels = inputs
+    rng = np.random.default_rng(1)
+    pts = (rng.random((POINT_CHUNK, 3)) - 0.5) * 10.0
+    chunk = torch.from_numpy(pts[np.lexsort(pts.T)].astype(np.float32)).cuda()
+    depths = torch.from_numpy(np.stack([v.depth for v in views]).astype(np.float32)).cuda()
+    cases, max_err = {}, 0
+    for z_test in (False, True):
+        for tol in (None, OCCLUSION_TOL):
+            kw = dict(z_test=z_test, depths=None if tol is None else depths,
+                      occlusion_tol=tol or 0.0)
+            k, p = cc.gather_colors(chunk, proj, texels, **kw), cc.gather_colors_torch(
+                chunk, proj, texels, **kw)
+            ks, ps = cc.color_stats(k), cc.color_stats_torch(k)
+            name = f"z_test={z_test},occlusion_tol={tol}"
+            cases[name] = dict(gather_equal=torch.equal(k, p), stats_equal=torch.equal(ks, ps),
+                               valid_frac=float((k != 0).float().mean()))
+            max_err = max(max_err, int((k.long() - p.long()).abs().max()),
+                          int((ks.int() - ps.int()).abs().max()))
+    frac = {k: c["valid_frac"] for k, c in cases.items()}
+    base = frac["z_test=False,occlusion_tol=None"]
+    ok = (all(c["gather_equal"] and c["stats_equal"] for c in cases.values())
+          and 0 < base < 1 and frac["z_test=True,occlusion_tol=None"] < base
+          and frac[f"z_test=False,occlusion_tol={OCCLUSION_TOL}"] < base)
+    emit(dict(phase="coloration_masks", cases=cases, seconds=time.perf_counter() - t0, ok=ok))
+    if not ok:
+        raise AssertionError("the gather's rejections differ from the plain gather's, "
+                             "or a test rejected nothing")
+    return max_err
+
+
+def coloration_times(col, inputs):
+    """Times of the coloration kernels and their plain versions on the first
+    vertex chunk, with the bounds: the gather (12 bytes a vertex, 48 a view
+    and a texel's 3 bytes of colour a valid sample read, a word a sample
+    written), the statistics (the words read, 10 bytes a vertex written),
+    and the chunk statistic with no word buffer at all. ``kernel_bytes`` is
+    what the gather moves with its 4-byte RGBX texels; it is not the bound.
+
+    Every ``ms`` and ``plain_ms`` is a CUDA-event time of one call as the
+    caller makes it, the host's launch included, like every other kernel's
+    in this script; ``device_ms`` beside it is the card's own time
+    (:func:`device_ms`). ``torch_reduce_ms`` is the plain statistics, PR 4's
+    route's reductions, on the same words."""
+    from cudadepthmapintegration_torch.kernels import coloration_cuda as cc
+
+    chunk, proj, texels = inputs
+    n, n_views = chunk.shape[0], proj.shape[0]
+    words = cc.gather_colors(chunk, proj, texels)
+    valid = int((words != 0).sum())
+    samples = n * n_views
+
+    def times(kernel, plain, flops=None, nbytes=None):
+        rec = dict(ms=cuda_ms(kernel, REPS), plain_ms=cuda_ms(plain, REPS),
+                   device_ms=device_ms(kernel, REPS), plain_device_ms=device_ms(plain, REPS))
+        if flops is not None:
+            rec.update(roofline(flops, nbytes, rec["ms"]))
+            rec["device_share"] = rec["bound_ms"] / rec["device_ms"]
+        return rec
+
+    def route():
+        return cc.color_stats(cc.gather_colors(chunk, proj, texels, out=words))
+
+    def plain_route():
+        return cc.color_stats_torch(cc.gather_colors_torch(chunk, proj, texels))
+
+    gather = times(lambda: cc.gather_colors(chunk, proj, texels, out=words),
+                   lambda: cc.gather_colors_torch(chunk, proj, texels),
+                   COLORATION_FLOPS * samples, 12 * n + 48 * n_views + 3 * valid + 4 * samples)
+    gather["kernel_bytes"] = 12 * n + 48 * n_views + 4 * valid + 4 * samples
+    stats = times(lambda: cc.color_stats(words), lambda: cc.color_stats_torch(words),
+                  STATS_OPS * samples, 4 * samples + 10 * n)
+    whole = times(route, plain_route)
+    col.update(
+        gather=gather, stats=stats, gather_ms=gather["ms"], stats_ms=stats["ms"],
+        torch_reduce_ms=stats["plain_ms"], torch_reduce_device_ms=stats["plain_device_ms"],
+        ms=whole["ms"], device_ms=whole["device_ms"], plain_ms=whole["plain_ms"],
+        samples_per_s=samples / (gather["device_ms"] / 1e3))
+    col["no_buffer"] = roofline((COLORATION_FLOPS + STATS_OPS) * samples,
+                                12 * n + 48 * n_views + 3 * valid + 10 * n, col["ms"])
+    col["no_buffer"]["device_share"] = col["no_buffer"]["bound_ms"] / col["device_ms"]
+    emit(dict(phase="coloration", **col, ok=True))
+    return col
+
+
+def stats_columns_phase():
+    """The statistics kernel against its plain version on crafted sample
+    columns (``testing.color_stat_columns``), every column kind, at each of
+    ``STATS_CASES``; returns the largest error."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import coloration_cuda as cc
+    from cudadepthmapintegration_torch.testing import color_stat_columns
+
+    t0 = time.perf_counter()
+    cases, max_err = [], 0
+    for n_views, n in STATS_CASES:
+        words = torch.from_numpy(color_stat_columns(n_views, n, seed=n_views)).cuda()
+        k, p = cc.color_stats(words), cc.color_stats_torch(words)
+        torch.cuda.synchronize()
+        count = cc.split_stats(p)[2]
+        case = dict(views=n_views, vertices=n, equal=torch.equal(k, p),
+                    max_count=int(count.max()), mb=words.numel() * 4 / 1e6)
+        if not case["equal"]:
+            emit(dict(phase="stats_columns", **case, ok=False))
+            raise AssertionError(f"statistics kernel differs on crafted columns ({case})")
+        max_err = max(max_err, int((k.int() - p.int()).abs().max()))
+        cases.append(case)
+        del words, k, p, count
+        torch.cuda.empty_cache()
+    emit(dict(phase="stats_columns", cases=cases, seconds=time.perf_counter() - t0, ok=True))
+    return max_err
+
+
+def cli_colors_phase(tmp, mesh, occlusion_tol=None, phase="cli_colors"):
+    """The colorize CLI's three colour arrays against the plain versions of
+    both coloration kernels, run on the card through ``colorize_points`` on
+    the same mesh and views with the same ``occlusion_tol``."""
+    from cudadepthmapintegration_torch.io import DepthMapDataset
+    from cudadepthmapintegration_torch.ops.coloration import colorize_points
+
+    t0 = time.perf_counter()
+    views = list(DepthMapDataset.from_folder(tmp, "vtiList.txt", "kList.txt"))
+    with _PlainColoration():
+        exp = colorize_points(mesh.points, views, occlusion_tol=occlusion_tol, device="cuda")
+    names = ("MeanColoration", "MedianColoration", "NbProjectedDepthMap")
+    equal = {k: bool(np.array_equal(mesh.point_data[k].reshape(e.shape), e))
+             for k, e in zip(names, exp)}
+    emit(dict(phase=phase, points=mesh.num_points, views=len(views), equal=equal,
+              occlusion_tol=occlusion_tol, counted_frac=float((exp[2] > 0).mean()),
+              seconds=time.perf_counter() - t0, ok=all(equal.values())))
+    if not all(equal.values()):
+        raise AssertionError(f"the CLI's colours differ from the plain route ({equal})")
+    return exp
+
+
+def cli_occlusion_phase(tmp, col_args, plain):
+    """``colorize --occlusionTol`` on the main path's mesh: both coloration
+    kernels launched (counted from 0 for this run only), its colours equal
+    to the plain route's with the same tolerance, and the occlusion test
+    rejecting samples of the ``plain`` counts (``NbProjectedDepthMap``
+    without it)."""
+    from cudadepthmapintegration_torch.cli import colorize
+    from cudadepthmapintegration_torch.io import read_vtp
+    from cudadepthmapintegration_torch.kernels import coloration_cuda
+
+    out = os.path.join(tmp, "col_occluded.vtp")
+    coloration_cuda.launches = coloration_cuda.stats_launches = 0
+    t0 = time.perf_counter()
+    rc = colorize.main(col_args + ["--output", out, "--occlusionTol", repr(OCCLUSION_TOL)])
+    seconds = time.perf_counter() - t0
+    launches = {"coloration": coloration_cuda.launches,
+                "coloration_stats": coloration_cuda.stats_launches}
+    if rc != 0:
+        raise AssertionError(f"colorize --occlusionTol exited {rc}")
+    emit(dict(phase="cli_occlusion", colorize_s=seconds, launches=launches))
+    if not all(launches.values()):
+        raise AssertionError(f"colorize --occlusionTol skipped a coloration kernel ({launches})")
+    mesh = read_vtp(out)
+    occluded = cli_colors_phase(tmp, mesh, OCCLUSION_TOL, phase="cli_occlusion_colors")[2]
+    if not (occluded <= plain).all() or not (occluded < plain).any():
+        raise AssertionError("--occlusionTol rejected no sample, or added one")
+
+
+class _PlainColoration:
+    """Within the block, ``ops.coloration`` runs the plain versions of both
+    coloration kernels, on whatever device its tensors are."""
+
+    def __enter__(self):
+        from cudadepthmapintegration_torch.kernels import coloration_cuda as cc
+        from cudadepthmapintegration_torch.ops import coloration as ops
+
+        self.saved = ops.gather_colors, ops.color_stats
+        ops.gather_colors, ops.color_stats = cc.gather_colors_torch, cc.color_stats_torch
+        return self
+
+    def __exit__(self, *exc):
+        from cudadepthmapintegration_torch.ops import coloration as ops
+
+        ops.gather_colors, ops.color_stats = self.saved
+
+
 def main() -> int:
     import torch
 
@@ -1047,9 +1487,9 @@ def main() -> int:
     from cudadepthmapintegration_torch.core import RayPotential
     from cudadepthmapintegration_torch.io import read_mha, read_vtp, write_depth_map_vti, write_krtd
     from cudadepthmapintegration_torch.kernels import _build, coloration_cuda, integrate_cuda
-    from cudadepthmapintegration_torch.ops.coloration import POINT_CHUNK
     from cudadepthmapintegration_torch.ops.oracle import integrate_views_oracle
     from cudadepthmapintegration_torch.pipeline.reconstruction import ReconstructionPipeline
+    from cudadepthmapintegration_torch.utils.log import Log
 
     # 1. Device.
     smi = nvidia_smi()
@@ -1063,7 +1503,8 @@ def main() -> int:
     spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", _build.BUILD.log))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               compiled=_build.BUILD.compiled, library=str(_build.BUILD.path),
-              integrate_shape=integrate_shape(),
+              integrate_shape=library_shape("integrate.cu"),
+              coloration_shape=library_shape("coloration.cu"),
               spill_bytes=spill,
               ptxas=[ln.strip() for ln in _build.BUILD.log.splitlines()
                      if "entry function" in ln or "registers" in ln or "spill" in ln]))
@@ -1100,46 +1541,15 @@ def main() -> int:
     del cases
     torch.cuda.empty_cache()
 
-    # 4. Coloration kernel vs plain version: a 1M-point sphere sample in
-    # raster order against 64 views, in the main path's vertex chunks.
-    t0 = time.perf_counter()
+    # 4. Coloration kernels vs plain versions: a 1M-point sphere sample in
+    # raster order against 64 views, in the main path's vertex chunks; then
+    # the statistics on crafted columns.
     views = orbit_views(N_VIEWS, MAP, MAP)
-    rng = np.random.default_rng(0)
-    pts = rng.standard_normal((1 << 20, 3))
-    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
-    pts = pts[np.lexsort(pts.T)].astype(np.float32)
-    proj = torch.from_numpy(np.stack(
-        [(v.camera.k4 @ v.camera.rt)[:3, :] for v in views]).astype(np.float32)).cuda()
-    colors = torch.from_numpy(np.stack([v.color for v in views])).cuda()
-    pts_d = torch.from_numpy(pts).cuda()
-    n_valid, col_err = 0, 0
-    for s in range(0, pts.shape[0], POINT_CHUNK):
-        chunk = pts_d[s : s + POINT_CHUNK]
-        ks, kv = coloration_cuda.gather_colors(chunk, proj, colors)
-        ps, pv = coloration_cuda.gather_colors_torch(chunk, proj, colors)
-        if not (torch.equal(ks, ps) and torch.equal(kv, pv)):
-            emit(dict(phase="coloration", ok=False, chunk=s,
-                      valid_differ=int((kv != pv).sum()),
-                      samples_differ=int((ks != ps).any(-1).sum())))
-            raise AssertionError("coloration kernel differs from its plain version")
-        n_valid += int(kv.sum())
-        col_err = max(col_err, int((ks.int() - ps.int()).abs().max()))
-    chunk = pts_d[:POINT_CHUNK]
-    chunk_valid = int(coloration_cuda.gather_colors_torch(chunk, proj, colors)[1].sum())
-    col = dict(points=int(pts.shape[0]), views=N_VIEWS, chunk=POINT_CHUNK,
-               valid_frac=n_valid / (pts.shape[0] * N_VIEWS), max_abs_err=col_err)
-    col["ms"] = cuda_ms(lambda: coloration_cuda.gather_colors(chunk, proj, colors), REPS)
-    col["plain_ms"] = cuda_ms(lambda: coloration_cuda.gather_colors_torch(chunk, proj, colors), REPS)
-    col["samples_per_s"] = POINT_CHUNK * N_VIEWS / (col["ms"] / 1e3)
-    col["plain_samples_per_s"] = POINT_CHUNK * N_VIEWS / (col["plain_ms"] / 1e3)
-    # The chunk's points and projections read once, the texels its valid
-    # samples gather (3 bytes each), the samples (3 bytes) and flags written.
-    samples = POINT_CHUNK * N_VIEWS
-    col.update(roofline(COLORATION_FLOPS * samples,
-                        12 * POINT_CHUNK + 48 * N_VIEWS + 3 * chunk_valid + 4 * samples,
-                        col["ms"]))
-    emit(dict(phase="coloration", **col, seconds=time.perf_counter() - t0, ok=True))
-    del pts_d, proj, colors
+    col, inputs = coloration_phase(views)
+    col["max_abs_err"] = max(col["max_abs_err"], coloration_masks_phase(views, inputs))
+    col = coloration_times(col, inputs)
+    del inputs
+    stats_err = stats_columns_phase()
     torch.cuda.empty_cache()
 
     # 5. The main path: both CLIs, in process, on a dataset written to disk.
@@ -1179,26 +1589,27 @@ def main() -> int:
 
         ReconstructionPipeline.run = capturing_run
         integrate_cuda.launches = 0
-        coloration_cuda.launches = 0
+        coloration_cuda.launches = coloration_cuda.stats_launches = 0
         t0 = time.perf_counter()
         rc = reconstruct.main(cli_args + ["--mhaPath", paths["vol.mha"], "--summary"])
         t_rec = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"reconstruct exited {rc}")
+        col_args = ["--input", paths["mesh.vtp"], "--vti", os.path.join(tmp, "vtiList.txt"),
+                    "--krtd", os.path.join(tmp, "kList.txt"), "--device", "cuda"]
+        col_log = Log(verbose=False)
         t0 = time.perf_counter()
-        rc = colorize.main([
-            "--input", paths["mesh.vtp"], "--output", paths["col.vtp"],
-            "--vti", os.path.join(tmp, "vtiList.txt"), "--krtd", os.path.join(tmp, "kList.txt"),
-            "--device", "cuda",
-        ])
+        rc = colorize.main(col_args + ["--output", paths["col.vtp"]], log=col_log)
         t_col = time.perf_counter() - t0
-        launches = {"integrate": integrate_cuda.launches, "coloration": coloration_cuda.launches}
+        launches = {"integrate": integrate_cuda.launches, "coloration": coloration_cuda.launches,
+                    "coloration_stats": coloration_cuda.stats_launches}
         if rc != 0:
             raise AssertionError(f"colorize exited {rc}")
         with open(os.path.join(tmp, "summary.txt")) as f:
             summary = [ln for ln in f.read().splitlines() if ln.startswith("--- ")]
-        emit(dict(phase="cli", reconstruct_s=t_rec, colorize_s=t_col, launches=launches,
-                  summary=summary,
+        # colorize_s less its phases is the reading of the views.
+        emit(dict(phase="cli", reconstruct_s=t_rec, colorize_s=t_col,
+                  colorize_phases_s=col_log.timings, launches=launches, summary=summary,
                   file_mb={k: os.path.getsize(p) / 1e6 for k, p in paths.items()}))
 
         # Read the outputs back and check them.
@@ -1223,11 +1634,15 @@ def main() -> int:
                 (check["counted_frac"] < 0.9, "too few vertices were seen"),
                 (vol.shape != (DIMS,) * 3 or not check["mha_finite"], "bad .mha volume"),
                 (launches["integrate"] == 0, "the CLI never launched the integrate kernel"),
-                (launches["coloration"] == 0, "the CLI never launched the coloration kernel"),
+                (launches["coloration"] == 0, "the CLI never launched the gather kernel"),
+                (launches["coloration_stats"] == 0,
+                 "the CLI never launched the statistics kernel"),
             ) if bad
         ]
         if problems:
             raise AssertionError("; ".join(problems))
+        cli_colors_phase(tmp, mesh)
+        cli_occlusion_phase(tmp, col_args, count)
 
         # The CLI's volume against the plain version on the card, bit for bit.
         plain_volume = captured.pop().volume
@@ -1276,7 +1691,13 @@ def main() -> int:
         dict(name="coloration", route="cuda",
              source="cudadepthmapintegration_torch/csrc/coloration.cu",
              replaces="cudadepthmapintegration_tpu/kernels/coloration_pallas.py:85",
-             launches=launches["coloration"], max_abs_err=col["max_abs_err"], **timing(col)),
+             launches=launches["coloration"], max_abs_err=col["max_abs_err"],
+             **timing(col["gather"])),
+        dict(name="coloration_stats", route="cuda",
+             source="cudadepthmapintegration_torch/csrc/coloration.cu",
+             replaces="cudadepthmapintegration_tpu/ops/coloration.py:115,123",
+             launches=launches["coloration_stats"], max_abs_err=max(col["max_abs_err"], stats_err),
+             **timing(col["stats"])),
         dict(name="sparse_fuse", route="cuda",
              source="cudadepthmapintegration_torch/csrc/sparse_fuse.cu",
              replaces="cudadepthmapintegration_tpu/kernels/gather_points.py:35",
@@ -1294,4 +1715,10 @@ if __name__ == "__main__":
         sys.exit(mp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:] == ["--integrate-shapes"]:
         sys.exit(integrate_shapes_main())
+    if sys.argv[1:] == ["--coloration-shapes"]:
+        sys.exit(coloration_shapes_main())
+    if sys.argv[1:2] == ["--gather-time"] and len(sys.argv) == 3:
+        sys.exit(gather_time_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--gather-ab"] and len(sys.argv) == 3:
+        sys.exit(gather_ab_main(sys.argv[2]))
     sys.exit(main())

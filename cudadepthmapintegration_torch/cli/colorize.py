@@ -45,12 +45,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "pixel by more than this tolerance (world units; "
                         "the reference samples through occluders). Use at "
                         "least the voxel size — mesh vertices sit up to "
-                        "half a voxel off the true surface. Runs a plain "
-                        "PyTorch gather instead of the kernel.")
+                        "half a voxel off the true surface.")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "float64"],
-                   help="Projection compute dtype (default float32; the CUDA "
-                        "kernel takes float32 only)")
+                   help="Projection compute dtype (default float32; float64 "
+                        "runs with --device cpu only, with or without "
+                        "--occlusionTol: the CUDA kernels take float32)")
     add_device_flag(p)
     p.add_argument("--compatIntMean", action="store_true",
                    help="Reference-parity int mean numerator "
@@ -58,14 +58,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: list[str] | None = None) -> int:
+def main(argv: list[str] | None = None, log: Log | None = None) -> int:
+    """Run the CLI; returns the exit code. ``log`` (default: a new
+    ``Log(verbose=--verbose)``) collects the phase timers ``Read input``,
+    ``Process coloration`` and ``Write output image``."""
     parser = build_parser()
     args = parser.parse_args(argv)
     err = device_error(args.device)
     if err:
         print(err, file=sys.stderr)
         return 1
-    log = Log(verbose=args.verbose)
+    log = log or Log(verbose=args.verbose)
     config = ColorationConfig(
         vti_list=args.vti,
         krtd_list=args.krtd,

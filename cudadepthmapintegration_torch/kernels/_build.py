@@ -49,7 +49,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # index and the stream last and returns the cudaError_t of its launch.
 _ENTRIES = {
     "cdmi_integrate": [_P] * 5 + [_I] * 6 + [_F] * 5 + [_I, _P],
-    "cdmi_gather_colors": [_P] * 5 + [_I] * 5 + [_I, _P],
+    "cdmi_gather_colors": [_P] * 5 + [_I] * 5 + [_F] + [_I, _P],
+    "cdmi_color_stats": [_P, _I] + [_P] * 3 + [_I] * 2 + [_I, _P],
     "cdmi_sparse_fuse": [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P],
 }
 

@@ -2,14 +2,15 @@
 
 Coloration is per-vertex independent (``MeshColoration.cxx:140-190``), so it
 shards as pure data parallelism: vertices are split into one contiguous
-partition per mesh entry, and each partition runs the coloration kernel
-(``kernels/coloration_cuda.gather_colors``) on its entry's device.
+partition per mesh entry, and each partition runs the coloration kernels
+(``kernels/coloration_cuda``) on its entry's device.
 
 Views are streamed in ``view_chunk`` batches, read once and uploaded once
-per distinct device. Each partition keeps its gathered samples on its
-device for the exact masked median; the per-batch integer sums and counts
-are accumulated in float64 and int64 on the host (integer-exact), so the
-result equals ``ops.coloration.colorize_points`` element for element.
+per distinct device. Each partition keeps one (V, n_part) buffer of packed
+sample words on its device, which every batch's gather fills row by row;
+the statistics kernel then reduces it in ``POINT_CHUNK`` column slices, one
+host copy a slice. The statistics are integer-exact, so the result equals
+``ops.coloration.colorize_points`` element for element.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.coloration_cuda import gather_colors
-from ..ops.coloration import POINT_CHUNK, _median_from_samples, _view_colors
+from ..kernels.coloration_cuda import color_stats, gather_colors, split_stats, stage_texels
+from ..ops.coloration import POINT_CHUNK, _check_kernel_dtype, _view_colors
 from ..utils.dtype import numpy_dtype, torch_dtype
 from .mesh import DeviceMesh
 
@@ -44,41 +45,33 @@ def sharded_colorize_points(
     h, w = views[0].depth.shape
     n = points.shape[0]
     devices = list(mesh.devices.reshape(-1))
+    for dev in devices:
+        _check_kernel_dtype(torch_dtype(dtype), torch.device(dev))
     bounds = np.linspace(0, n, len(devices) + 1).astype(np.int64)
     parts = [
         torch.from_numpy(np.ascontiguousarray(points[a:b], np_dtype)).to(dev)
         for a, b, dev in zip(bounds[:-1], bounds[1:], devices)
     ]
-    samples = [[] for _ in devices]
-    valid = [[] for _ in devices]
-    sums = np.zeros((n, 3), np.float64)
-    counts = np.zeros((n,), np.int64)
+    words = [torch.empty((n_views, b - a), dtype=torch.int32, device=dev)
+             for a, b, dev in zip(bounds[:-1], bounds[1:], devices)]
     vc = min(view_chunk, n_views)
     for vs in range(0, n_views, vc):
         batch = [views[i] for i in range(vs, min(vs + vc, n_views))]
         proj = np.stack([(v.camera.k4 @ v.camera.rt)[:3, :] for v in batch]).astype(np_dtype)
         colors = np.stack([_view_colors(v, h, w) for v in batch])
         staged = {}
-        for p, (a, b, dev) in enumerate(zip(bounds[:-1], bounds[1:], devices)):
+        for p, dev in enumerate(devices):
             if dev not in staged:
-                staged[dev] = (torch.from_numpy(proj).to(dev), torch.from_numpy(colors).to(dev))
-            rgb, ok = gather_colors(parts[p], *staged[dev], z_test)
-            samples[p].append(rgb)
-            valid[p].append(ok)
-            sums[a:b] += (rgb.to(torch.int64) * ok[..., None]).sum(dim=0).cpu().numpy()
-            counts[a:b] += ok.sum(dim=0).cpu().numpy()
+                staged[dev] = (torch.from_numpy(proj).to(dev),
+                               stage_texels(torch.from_numpy(colors).to(dev)))
+            gather_colors(parts[p], *staged[dev], z_test, out=words[p], view_offset=vs)
 
-    meds = np.zeros((n, 3), np.float32)
+    mean_u8 = np.zeros((n, 3), np.uint8)
+    med_u8 = np.zeros((n, 3), np.uint8)
+    counts = np.zeros((n,), np.int32)
     for p, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
-        smp, ok = torch.cat(samples[p]), torch.cat(valid[p])
-        # In vertex chunks: bounds the sort's buffers as colorize_points does.
-        for c in range(0, b - a, POINT_CHUNK):
-            meds[a + c : min(a + c + POINT_CHUNK, b)] = (
-                _median_from_samples(smp[:, c : c + POINT_CHUNK], ok[:, c : c + POINT_CHUNK])
-                .cpu().numpy()
-            )
-    mean = sums / np.maximum(counts[:, None], 1)
-    # vtk uchar-array SetTuple truncates doubles (MeshColoration.cxx:180,185).
-    mean_u8 = np.clip(mean, 0, 255).astype(np.uint8)
-    med_u8 = np.clip(meds, 0, 255).astype(np.uint8)
-    return mean_u8, med_u8, counts.astype(np.int32)
+        for c in range(a, b, POINT_CHUNK):
+            e = min(c + POINT_CHUNK, b)
+            stats = color_stats(words[p][:, c - a : e - a]).cpu()
+            mean_u8[c:e], med_u8[c:e], counts[c:e] = (t.numpy() for t in split_stats(stats))
+    return mean_u8, med_u8, counts

@@ -12,7 +12,14 @@ import numpy as np
 from ..core.camera import Camera
 from ..core.view import DepthMapView
 
-__all__ = ["look_at_camera", "orbit_cameras", "render_sphere_view", "sphere_scene"]
+__all__ = [
+    "COLOR_COLUMN_KINDS",
+    "color_stat_columns",
+    "look_at_camera",
+    "orbit_cameras",
+    "render_sphere_view",
+    "sphere_scene",
+]
 
 
 def look_at_camera(
@@ -121,3 +128,63 @@ def sphere_scene(
     return [
         render_sphere_view(c, width, height, radius=radius) for c in cams
     ]
+
+
+# Kinds of crafted sample columns (see color_stat_columns).
+COLOR_COLUMN_KINDS = ("uniform", "edges", "split", "none", "one", "full", "constant")
+# Values on either side of the high-nibble edges the median's selection uses.
+_EDGE_VALUES = np.array([0, 15, 16, 239, 240, 255], np.uint8)
+
+
+def color_stat_columns(
+    n_views: int, n: int, kinds=COLOR_COLUMN_KINDS, seed: int = 0
+) -> np.ndarray:
+    """(V, N) int32 packed sample words (``r | g << 8 | b << 16 | 1 << 24``
+    when valid, 0 when not) whose columns cycle through ``kinds``, crafted
+    for the colour statistics' exact median:
+
+    * ``uniform``: random values, each sample valid with probability 1/2;
+    * ``edges``: the same with values from 0, 15, 16, 239, 240, 255;
+    * ``split``: an even count 2k of valid samples, k in one high nibble and
+      k in a higher one per channel, so that the two middle ranks fall in
+      different high-nibble bins (no valid sample when V < 2);
+    * ``none``: no valid sample; ``one``: exactly one;
+    * ``full``: every sample valid, random values (bins past 255 samples
+      once V > 255);
+    * ``constant``: every sample valid and equal per channel (one bin holds
+      all V samples).
+    """
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 256, (n_views, n, 3), dtype=np.uint8)
+    valid = rng.random((n_views, n), dtype=np.float32) < 0.5
+    kind = np.arange(n) % len(kinds)
+    for k, name in enumerate(kinds):
+        cols = np.flatnonzero(kind == k)
+        m = cols.size
+        if name == "edges":
+            vals[:, cols] = _EDGE_VALUES[rng.integers(0, 6, (n_views, m, 3))]
+        elif name == "split":
+            half = rng.integers(1, n_views // 2 + 1, m) if n_views >= 2 else np.zeros(m, int)
+            # A random order of the views in each column.
+            rank = np.argsort(rng.random((n_views, m), dtype=np.float32), axis=0)
+            lower = rng.integers(0, 15, (m, 3))
+            upper = rng.integers(lower + 1, 16)
+            bins = np.where((rank >= half)[..., None], upper, lower)
+            vals[:, cols] = bins * 16 + rng.integers(0, 16, (n_views, m, 3))
+            valid[:, cols] = rank < 2 * half
+        elif name == "none":
+            valid[:, cols] = False
+        elif name == "one":
+            valid[:, cols] = np.arange(n_views)[:, None] == rng.integers(0, n_views, m)
+        elif name == "full":
+            valid[:, cols] = True
+        elif name == "constant":
+            valid[:, cols] = True
+            vals[:, cols] = _EDGE_VALUES[rng.integers(0, 6, (m, 3))]
+        elif name != "uniform":
+            raise ValueError(f"unknown column kind {name!r}")
+    words = np.full((n_views, n), 1 << 24, np.int32)
+    for c in range(3):
+        words |= vals[..., c].astype(np.int32) << (8 * c)
+    words[~valid] = 0
+    return words

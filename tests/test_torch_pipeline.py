@@ -29,7 +29,7 @@ import cudadepthmapintegration_tpu.kernels.integrate_pallas as KP
 from cudadepthmapintegration_torch.cli import colorize as t_colorize
 from cudadepthmapintegration_torch.cli import reconstruct as t_reconstruct
 from cudadepthmapintegration_torch.kernels import _build
-from cudadepthmapintegration_torch.kernels.coloration_cuda import gather_colors
+from cudadepthmapintegration_torch.kernels.coloration_cuda import color_stats, gather_colors
 from cudadepthmapintegration_torch.kernels.integrate_cuda import integrate_views
 from cudadepthmapintegration_torch.ops.integrate import TSDFIntegrator as TorchIntegrator
 from cudadepthmapintegration_tpu.cli import colorize as j_colorize
@@ -190,7 +190,9 @@ def test_wrappers_raise_for_a_device_without_a_kernel():
         integrate_views(vol, *tables, torch.zeros((1, 5, 5), device=meta), RayPotential())
     with pytest.raises(ValueError, match="no coloration kernel for device meta"):
         gather_colors(torch.zeros((3, 3), device=meta), torch.zeros((1, 3, 4), device=meta),
-                      torch.zeros((1, 5, 5, 3), dtype=torch.uint8, device=meta))
+                      torch.zeros((1, 5, 5), dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="no coloration kernel for device meta"):
+        color_stats(torch.zeros((1, 3), dtype=torch.int32, device=meta))
     grid = VoxelGrid(dims=(5, 4, 3), origin=(0, 0, 0), spacing=(1, 1, 1))
     integ = TorchIntegrator(grid, RayPotential(thick=0.1), device=meta).reset()
     with pytest.raises(ValueError, match="no integrate kernel"):
