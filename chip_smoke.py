@@ -43,6 +43,18 @@ with the occlusion test and on samples that miss every view (phase
 ``coloration_masks``), and ``colorize --occlusionTol`` runs both coloration
 kernels (phase ``cli_occlusion``).
 
+The sparse fuse kernels are held to their plain versions in bit patterns
+on four cases (phase ``sparse_kernel``): one fr1 frame into ~5,600 blocks
+of 8^3 (the row kernel), the same from pools of -0.0, the same with blocks
+across the camera plane, behind it and off the image, and (4, 6, 5) blocks
+(the general kernel). Each is timed four ways: CUDA events around a call
+(``ms``), the kernel's device time under ``torch.profiler``
+(``device_ms``), the same with the L2 flushed before each call
+(``cold_device_ms``, the yardstick against the byte bound) and the Python
+call's wall time (``host_ms``). The cases run in a fresh process of this
+script (``--sparse-cases``): late in a long process ``torch.profiler``
+recorded no device time.
+
 Every phase prints one JSON line. The line before the last holds the
 kernels' record (launches counted during each kernel's CLI run only, errors,
 bounds and CUDA-event times of one call measured here; the coloration
@@ -56,14 +68,18 @@ JAX.
 shape), holds each build to the plain version bit for bit and times it on
 the integrate cases. ``python3 chip_smoke.py --coloration-shapes`` does the
 same for ``csrc/coloration.cu`` (views a gather thread, threads a block of
-each kernel) on one vertex chunk of the coloration phase. The library
+each kernel) on one vertex chunk of the coloration phase, and ``python3
+chip_smoke.py --sparse-shapes`` for ``csrc/sparse_fuse.cu`` (voxels a
+thread, blocks a CTA) on the fr1 frame, by cold device time. The library
 itself is built with one shape. ``python3 chip_smoke.py --gather-ab DIR``
 times the coloration gather of the checkout unpacked in ``DIR`` against
-this checkout's, each built from its own sources in a process of its own.
+this checkout's, each built from its own sources in a process of its own,
+and ``python3 chip_smoke.py --sparse-ab DIR`` the sparse fuse kernel.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -137,6 +153,19 @@ STATS_CASES = ((1, 7 * 96), (2, 7 * 96), (17, 7 * 96), (300, 7 * 96), (1000, 655
 # The occlusion tolerance of the gather's card cases and of the colorize
 # run with --occlusionTol: 8 voxels of the main path's grid.
 OCCLUSION_TOL = 0.05
+# The scratch buffer a cold device time writes and reads before each run:
+# five times the H100's 50 MB L2.
+L2_FLUSH_BYTES = 256 << 20
+# A substring of the name of every sparse fuse kernel in csrc/sparse_fuse.cu
+# (and of the one before it), as torch.profiler reports kernel names.
+SPARSE_KERNEL_NAME = "sparse_fuse"
+# The launch shapes `--sparse-shapes` builds csrc/sparse_fuse.cu with:
+# voxels a thread along an x-row of an 8^3 block, and sparse blocks a CTA.
+# A CTA has blocks x 512 / voxels threads, at most 1,024; at 1,024 a thread
+# has 64 registers, fewer than the colour kernel needs at 4 voxels a thread
+# (it spilled), so (4, 8) is left out.
+SPARSE_SHAPES = tuple((vx, nb) for vx in (1, 2, 4, 8) for nb in (1, 2, 4, 8)
+                      if nb * 512 // vx <= 1024 and (vx, nb) != (4, 8))
 
 
 def emit(record: dict) -> None:
@@ -160,25 +189,59 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, kernel: str | None = None, cold: bool = False) -> float:
     """Milliseconds the card spends in the kernels and copies of one
     ``fn()``: their device times under ``torch.profiler`` summed over
     ``reps`` runs after one warm-up, divided by ``reps``. Unlike
     :func:`cuda_ms`, it leaves out the time the card waits for the host to
-    launch, which dominates a call of a few tens of microseconds."""
+    launch, which dominates a call of a few tens of microseconds.
+
+    With ``kernel``, only the entries whose name contains it are summed.
+    With ``cold`` (which needs ``kernel``), each run first flushes the L2: it
+    writes a scratch buffer of ``L2_FLUSH_BYTES`` and reads it back, so that
+    the run finds its inputs in device memory, as a caller whose other work
+    passed through the L2 would, and the L2 holds no dirty line of the
+    flush to write back during the run. The flush's own kernels fall outside
+    the name filter."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if cold and kernel is None:
+        raise ValueError("a cold device time needs the kernel's name")
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if cold:
+                scratch.fill_(1.0)
+                scratch.sum()
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    events = prof.key_averages()
+    total_us = sum(e.self_device_time_total for e in events if kernel is None or kernel in e.key)
     if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
+        seen = sorted({e.key[:60] for e in events if e.self_device_time_total > 0})
+        raise AssertionError(f"torch.profiler recorded no device time for {kernel or 'fn'} "
+                             f"(device entries: {seen})")
     return total_us / reps / 1e3
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median wall milliseconds of the Python call ``fn()`` over ``reps``
+    runs after one warm-up, the card drained before each and not waited for
+    after it: what the caller's thread spends to launch."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def roofline(flops, nbytes, ms):
@@ -239,77 +302,245 @@ def tum_orbit_view(i, n):
     return render_sphere_view(Camera(k=FR1, rt=rt), TUM_W, TUM_H, radius=1.0)
 
 
-def sparse_kernel_phase(params):
-    """The sparse fuse kernel against its plain versions on one frame of the
-    sparse path, depth only and with colour; returns the phase record."""
+def sparse_params():
+    """``fuse_rgbd``'s ray potential at the sparse path's voxel: 2 voxels
+    thick, an 8-voxel band."""
+    from cudadepthmapintegration_torch.core import RayPotential
+
+    return RayPotential(thick=2 * SPARSE_VOXEL, rho=0.8, eta=0.03, delta=8 * SPARSE_VOXEL)
+
+
+def sparse_case_grid(params, views, block_shape=(8, 8, 8), capacity=SPARSE_CAPACITY):
+    """A colour grid of the sparse path on the card holding the blocks of
+    the ``views``' trajectory, with the first three views fused, so that a
+    later frame adds into non-zero pools."""
+    from cudadepthmapintegration_torch.ops.sparse_grid import SparseTSDFGrid
+
+    grid = SparseTSDFGrid(voxel_size=SPARSE_VOXEL, params=params, block_shape=block_shape,
+                          capacity=capacity, with_color=True, device="cuda")
+    grid.preallocate(views)  # the trajectory's blocks, as a known-trajectory run would
+    for v in views[:3]:
+        grid.integrate_frame(v)
+    return grid
+
+
+def straddle_batch(grid, view):
+    """``view``'s batch with a cube of 9^3 blocks around its camera carved
+    too, every one of them: the frustum test keeps the blocks across the
+    camera plane, and the rest (wholly behind the camera, or off the image)
+    are added as an over-inclusive caller would add them."""
     import torch
 
+    rt = view.camera.rt
+    eye = -rt[:3, :3].T @ rt[:3, 3]
+    centre = np.floor(eye / grid._block_extent).astype(np.int64)
+    cube = [tuple(int(x) for x in centre + d) for d in itertools.product(range(-4, 5), repeat=3)]
+    grid._allocate(cube)
+    batch = grid.frame_batch(view)
+    have = set(batch.slots.tolist())
+    extra = [c for c in cube if grid.block_map[c] not in have]
+    slots = torch.tensor([grid.block_map[c] for c in extra], dtype=torch.int32, device="cuda")
+    origins = torch.from_numpy(
+        (np.array(extra, np.float64) * grid._block_extent).astype(np.float32)).cuda()
+    return batch._replace(slots=torch.cat([batch.slots, slots]),
+                          origins=torch.cat([batch.origins, origins]))
+
+
+def sparse_views():
+    """The sparse cases' frames: an 8-frame fr1 orbit; each case fuses the
+    first three and takes frame 3."""
+    return [tum_orbit_view(i, 8) for i in range(8)]
+
+
+def sparse_cases(params):
+    """The sparse kernels' cases, ``[(label, grid, batch, from_neg_zero)]``,
+    each frame 3 of :func:`sparse_views`:
+
+    * ``fr1``: into the trajectory's 8^3 blocks (~5,600): row 8's shape, the
+      row kernel;
+    * ``neg_zero``: the same with every pool word -0.0 before the frame;
+    * ``straddle``: the same with the blocks of :func:`straddle_batch`;
+    * ``block_4x6x5``: the frame into (4, 6, 5) blocks: the general kernel."""
+    views = sparse_views()
+    grid = sparse_case_grid(params, views)
+    batch = grid.frame_batch(views[3])
+    cases = [("fr1", grid, batch, False), ("neg_zero", grid, batch, True),
+             ("straddle", grid, straddle_batch(grid, views[3]), False)]
+    odd = sparse_case_grid(params, views, block_shape=(4, 6, 5), capacity=4 * SPARSE_CAPACITY)
+    cases.append(("block_4x6x5", odd, odd.frame_batch(views[3]), False))
+    return cases
+
+
+def sparse_bound(voxels, colour, n_blocks, map_hw, ms):
+    """Bound of one sparse fuse call: the pools read and written once (4
+    bytes a voxel, 16 more with colour), the frame's maps (4 bytes a pixel,
+    3 more with colour), slots and origins (16 bytes a block) read once."""
+    flops = (SPARSE_FLOPS + (SPARSE_COLOR_FLOPS if colour else 0)) * voxels
+    nbytes = (2 * (4 + (16 if colour else 0)) * voxels
+              + map_hw[0] * map_hw[1] * (4 + (3 if colour else 0)) + 16 * n_blocks)
+    return roofline(flops, nbytes, ms)
+
+
+def sparse_times(run, voxels, colour, n_blocks, map_hw):
+    """One sparse fuse call ``run()`` timed four ways: ``ms`` (CUDA events
+    around the call, the host's launch included), ``device_ms`` (the
+    kernel's own time under ``torch.profiler``), ``cold_device_ms`` (the
+    same with the L2 flushed before each call: the yardstick against the
+    byte bound) and ``host_ms`` (the Python call's wall time). With the
+    bound, and its share by CUDA events (``roofline_share``) and by cold
+    device time (``cold_device_share``)."""
+    rec = dict(ms=cuda_ms(run, REPS), device_ms=device_ms(run, REPS, SPARSE_KERNEL_NAME),
+               cold_device_ms=device_ms(run, REPS, SPARSE_KERNEL_NAME, cold=True),
+               host_ms=host_ms(run, REPS))
+    rec["voxel_updates_per_s"] = voxels / (rec["ms"] / 1e3)
+    rec.update(sparse_bound(voxels, colour, n_blocks, map_hw, rec["ms"]))
+    rec["cold_device_share"] = rec["bound_ms"] / rec["cold_device_ms"]
+    return rec
+
+
+def sparse_case(label, grid, batch, params, from_neg_zero=False):
+    """One sparse case: the kernel against the plain versions in bit
+    patterns, depth only and with colour, each from the grid's pools (or,
+    with ``from_neg_zero``, from pools of -0.0: every voxel adds its
+    potential or +0.0, so no touched word may stay -0.0), then timed by
+    :func:`sparse_times`. Returns the case record."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import sparse_cuda as sc
     from cudadepthmapintegration_torch.kernels.sparse_cuda import (
         sparse_accumulate_color_torch,
         sparse_fuse,
         sparse_fuse_torch,
     )
-    from cudadepthmapintegration_torch.ops.sparse_grid import SparseTSDFGrid
 
-    t0 = time.perf_counter()
-    views = [tum_orbit_view(i, 8) for i in range(8)]
-    grid = SparseTSDFGrid(voxel_size=SPARSE_VOXEL, params=params, capacity=SPARSE_CAPACITY,
-                          with_color=True, device="cuda")
-    grid.preallocate(views)  # the trajectory's blocks, as a known-trajectory run would
-    for v in views[:3]:
-        grid.integrate_frame(v)  # so the compared frame adds into non-zero pools
-    batch = grid.frame_batch(views[3])
+    h, w = batch.depth.shape
+    ui, _, zcam = sc._project(batch.origins, batch.proj_rows, grid.axes, grid.block_shape, h, w)
+    behind = (zcam < 0).flatten(1)
     n_blocks = int(batch.slots.shape[0])
     voxels = n_blocks * int(np.prod(grid.block_shape))
+    # A checkout from before the row kernel (--sparse-time of a parent) has
+    # one kernel and one counter.
+    kind = sc.kernel_for(grid.block_shape) if hasattr(sc, "kernel_for") else "general"
+    rec = dict(block_shape=list(grid.block_shape), blocks=n_blocks, voxels=voxels, map=[h, w],
+               kernel=kind, valid_frac=float((ui >= 0).float().mean()),
+               blocks_behind=int(behind.all(1).sum()),
+               blocks_across_plane=int((behind.any(1) & ~behind.all(1)).sum()),
+               voxels_off_image=int(((zcam >= 0) & (ui < 0)).sum()))
+    del ui, zcam, behind
     args = (batch.slots, batch.origins, batch.proj_rows, grid.axes, batch.depth)
-    rec = dict(blocks=n_blocks, voxels=voxels, map=[TUM_H, TUM_W])
+    touched = batch.slots.long()
     for colour in (False, True):
         names = ("pool", "color_pool", "weight_pool") if colour else ("pool",)
-        kernel = {k: getattr(grid, k).clone() for k in names}
         plain = {k: getattr(grid, k).clone() for k in names}
+        if from_neg_zero:
+            for t in plain.values():
+                t.fill_(-0.0)
+        kernel = {k: t.clone() for k, t in plain.items()}
 
-        def run_kernel():
+        def run_kernel(kernel=kernel, colour=colour):
             extra = {}
             if colour:
                 extra = dict(color_pool=kernel["color_pool"], weight_pool=kernel["weight_pool"],
                              rgb=batch.rgb, band=grid.color_band)
             sparse_fuse(kernel["pool"], *args, params, **extra)
 
-        def run_plain():
+        def run_plain(plain=plain, colour=colour):
             sparse_fuse_torch(plain["pool"], *args, params)
             if colour:
                 sparse_accumulate_color_torch(plain["color_pool"], plain["weight_pool"], *args,
                                               batch.rgb, grid.color_band)
 
+        sc.launches = sc.rows_launches = 0
         run_kernel()
+        launches = dict(all=sc.launches, rows=sc.rows_launches)
         run_plain()
         torch.cuda.synchronize()
-        label = "colour" if colour else "depth"
-        errs = {k: float((kernel[k] - plain[k]).abs().max()) for k in names}
-        equal = {k: torch.equal(kernel[k], plain[k]) for k in names}
-        if not all(equal.values()):
-            emit(dict(phase="sparse_kernel", case=label, equal=equal, max_abs_err=errs, ok=False))
-            raise AssertionError(f"sparse fuse kernel differs from its plain version ({label})")
-        ms = cuda_ms(run_kernel, REPS)
-        plain_ms = cuda_ms(run_plain, REPS)
-        # Pools read and written once (4 + 12 + 4 bytes a voxel with
-        # colour), the frame's maps, slots and origins read once.
-        flops = (SPARSE_FLOPS + (SPARSE_COLOR_FLOPS if colour else 0)) * voxels
-        nbytes = (2 * (4 + (16 if colour else 0)) * voxels
-                  + TUM_W * TUM_H * (4 + (3 if colour else 0)) + 16 * n_blocks)
-        rec[label] = dict(equal=equal, max_abs_err=errs, ms=ms, plain_ms=plain_ms,
-                          voxel_updates_per_s=voxels / (ms / 1e3),
-                          plain_voxel_updates_per_s=voxels / (plain_ms / 1e3),
-                          **roofline(flops, nbytes, ms))
-    if float(grid.pool.abs().max()) <= 0.5:
-        raise AssertionError("sparse kernel case: the frames missed the blocks")
-    rec["seconds"] = time.perf_counter() - t0
+        mode = "colour" if colour else "depth"
+        out = dict(launches=launches,
+                   equal_bits={k: same_bits(kernel[k], plain[k]) for k in names},
+                   max_abs_err={k: float((kernel[k] - plain[k]).abs().max()) for k in names})
+        ok = all(out["equal_bits"].values()) and launches == dict(all=1, rows=int(kind == "rows"))
+        if from_neg_zero:
+            words = {k: kernel[k][touched].view(torch.int32) for k in names}
+            out["neg_zero_words"] = {k: int((v == NEG_ZERO).sum()) for k, v in words.items()}
+            out["pos_zero_words"] = {k: int((v == 0).sum()) for k, v in words.items()}
+            ok = ok and not any(out["neg_zero_words"].values()) and out["pos_zero_words"]["pool"] > 0
+        if not ok:
+            emit(dict(phase="sparse_kernel", case=label, mode=mode, **rec, **out, ok=False))
+            raise AssertionError(f"sparse fuse kernel differs from its plain version ({label}, {mode})")
+        out["plain_ms"] = cuda_ms(run_plain, 3)
+        out.update(sparse_times(run_kernel, voxels, colour, n_blocks, (h, w)))
+        rec[mode] = out
+        del plain, kernel
     return rec
+
+
+def sparse_cases_main() -> int:
+    """``--sparse-cases``: :func:`sparse_case` on every case of
+    :func:`sparse_cases`, one line each, the frames' reach and the straddle
+    case's geometry checked; the last line holds every case's record."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    params = sparse_params()
+    cases = sparse_cases(params)
+    out = {}
+    for label, grid, batch, from_neg_zero in cases:
+        out[label] = rec = sparse_case(label, grid, batch, params, from_neg_zero)
+        emit(dict(phase="sparse_kernel", case=label, **rec, ok=True))
+    if float(cases[0][1].pool.abs().max()) <= 0.5:
+        raise AssertionError("sparse kernel case: the frames missed the blocks")
+    straddle = out["straddle"]
+    if not (straddle["blocks_behind"] and straddle["blocks_across_plane"]
+            and straddle["voxels_off_image"] and 0 < straddle["valid_frac"] < 1):
+        raise AssertionError(f"the straddle case misses its geometry ({straddle})")
+    emit(dict(phase="sparse_cases", cases=out))
+    return 0
+
+
+def sparse_kernel_phase(params):
+    """The sparse fuse kernels against their plain versions on every case of
+    :func:`sparse_cases`, in a process of its own (``--sparse-cases``), whose
+    lines but the last are passed on: late in this process, after the
+    phases before it, ``torch.profiler`` recorded no device time at all
+    (PERF.md section 7), while a fresh process records every call. Then the
+    general kernel's own path, here: ``integrate_frame`` of a (4, 6, 5)
+    grid, launches counted from 0. Returns ``{case: record}`` and that
+    path's launches."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import sparse_cuda as sc
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--sparse-cases"],
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0:
+        print(proc.stdout, proc.stderr[-4000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"--sparse-cases exited {proc.returncode}")
+    print("\n".join(lines[:-1]), flush=True)
+    out = json.loads(lines[-1])["cases"]
+    views = sparse_views()
+    odd = sparse_case_grid(params, views, block_shape=(4, 6, 5), capacity=4 * SPARSE_CAPACITY)
+    sc.launches = sc.rows_launches = 0
+    odd.integrate_frame(views[3])
+    path = dict(all=sc.launches, rows=sc.rows_launches)
+    del odd
+    torch.cuda.empty_cache()
+    emit(dict(phase="sparse_kernel_done", general_path="SparseTSDFGrid(block_shape=(4, 6, 5))"
+              ".integrate_frame", general_path_launches=path,
+              seconds=time.perf_counter() - t0, ok=path == dict(all=1, rows=0)))
+    if path != dict(all=1, rows=0):
+        raise AssertionError(f"the (4, 6, 5) grid did not launch the general kernel ({path})")
+    return out, path["all"]
 
 
 def fuse_rgbd_phase(tmp):
     """``fuse_rgbd --onlineColor --device cuda`` over a written sequence;
-    returns the sparse kernel's launches in the run."""
+    returns the sparse kernels' launches in the run, one a frame, each of
+    the row kernel (the grid's blocks are 8^3)."""
     import io
 
     from cudadepthmapintegration_torch.cli import fuse_rgbd
@@ -331,7 +562,7 @@ def fuse_rgbd_phase(tmp):
 
     out = os.path.join(tmp, "fused.vtp")
     log = Log(verbose=True, stream=io.StringIO())
-    integrate_cuda.launches = sparse_cuda.launches = 0
+    integrate_cuda.launches = sparse_cuda.launches = sparse_cuda.rows_launches = 0
     coloration_cuda.launches = coloration_cuda.stats_launches = 0
     t0 = time.perf_counter()
     rc = fuse_rgbd.main([
@@ -340,7 +571,7 @@ def fuse_rgbd_phase(tmp):
         "--pixelStride", "4", "--output", out,
     ], log=log)
     cli_s = time.perf_counter() - t0
-    launches = sparse_cuda.launches
+    launches, rows_launches = sparse_cuda.launches, sparse_cuda.rows_launches
     if rc != 0:
         raise AssertionError(f"fuse_rgbd exited {rc}")
     text = log.stream.getvalue()
@@ -356,6 +587,7 @@ def fuse_rgbd_phase(tmp):
                dataset_s=dataset_s, cli_s=cli_s, fuse_s=log.timings["Fuse frames"],
                fused_fps=frames / log.timings["Fuse frames"], blocks_allocated=blocks,
                extract_mesh_s=log.timings["Extract mesh"], launches=launches,
+               rows_launches=rows_launches,
                points=mesh.num_points, triangles=mesh.num_triangles,
                median_radius=float(np.median(radii)) if len(radii) else None,
                arrays=sorted(mesh.point_data),
@@ -371,7 +603,8 @@ def fuse_rgbd_phase(tmp):
              "online colour arrays missing"),
             (rec["color_weight_pos_frac"] < 0.9, "too few vertices received online colour"),
             (frames != SPARSE_FRAMES, "fuse_rgbd did not fuse every frame"),
-            (launches == 0, "fuse_rgbd never launched the sparse fuse kernel"),
+            (launches != frames or rows_launches != launches,
+             "fuse_rgbd did not fuse every frame through the row kernel"),
         ) if bad
     ]
     if problems:
@@ -672,11 +905,12 @@ def gather_time_main(root) -> int:
     return 0
 
 
-def gather_ab_main(parent_root) -> int:
-    """``--gather-ab PARENT_ROOT``: the coloration gather of another
-    checkout (unpacked under ``PARENT_ROOT``) against this one's, each in a
-    process of its own (:func:`gather_time_main`), in the order parent,
-    this, this, parent."""
+def ab_main(kind, parent_root) -> int:
+    """``--gather-ab PARENT_ROOT`` and ``--sparse-ab PARENT_ROOT``: the
+    coloration gather (``kind`` ``"gather"``) or the sparse fuse kernel
+    (``"sparse"``) of another checkout, unpacked under ``PARENT_ROOT``,
+    against this one's, each in a process of its own (``--gather-time``,
+    ``--sparse-time``), in the order parent, this, this, parent."""
     import torch
 
     if not torch.cuda.is_available():
@@ -687,13 +921,133 @@ def gather_ab_main(parent_root) -> int:
     runs = []
     for label, root in (("parent", parent_root), ("this", here), ("this", here),
                         ("parent", parent_root)):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--gather-time", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), f"--{kind}-time", root],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            raise AssertionError(f"--gather-time {root} exited {proc.returncode}")
+            raise AssertionError(f"--{kind}-time {root} exited {proc.returncode}")
         runs.append(dict(label=label, **json.loads(proc.stdout.strip().splitlines()[-1])))
-    emit(dict(phase="gather_ab", runs=runs))
+    emit(dict(phase=f"{kind}_ab", runs=runs))
+    return 0
+
+
+def sparse_time_main(root) -> int:
+    """``--sparse-time ROOT``: the sparse fuse kernel of the package under
+    ``ROOT`` (this checkout or another one), built from that checkout's
+    sources, on the ``fr1`` case of :func:`sparse_cases`, depth only and
+    with colour: held to that package's plain versions in bit patterns,
+    then timed by :func:`sparse_times`. Prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import sparse_cuda
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    nvidia_smi()
+    params = sparse_params()
+    views = sparse_views()
+    grid = sparse_case_grid(params, views)
+    rec = sparse_case("fr1", grid, grid.frame_batch(views[3]), params)
+    emit(dict(phase="sparse_time", package=os.path.dirname(sparse_cuda.__file__), **rec))
+    return 0
+
+
+def ptxas_kernels(log):
+    """``{kernel: (registers, spill bytes)}`` of each entry function of
+    ``csrc/sparse_fuse.cu`` in ``nvcc -Xptxas -v`` output, named
+    ``rows[colour]``, ``general[depth]`` and so on."""
+    table, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = (f"{'rows' if 'rows' in m.group(1) else 'general'}"
+                    f"[{'colour' if 'ILb1E' in m.group(1) else 'depth'}]")
+            table[name] = [0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            table[name][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in table.items()}
+
+
+def sparse_shapes_main() -> int:
+    """``--sparse-shapes``: ``csrc/sparse_fuse.cu`` built at every launch
+    shape of ``SPARSE_SHAPES`` (``-D CDMI_SPARSE_VX``, ``CDMI_SPARSE_BLOCKS``
+    and the same for the colour instance, ``CDMI_SPARSE_COLOR_*``),
+    each build's row kernel held to the plain versions in bit patterns on
+    the ``fr1`` case, depth only and with colour, and timed by cold device
+    time twice over; the general kernel (a voxel a thread) beside them on
+    the same 8^3 blocks, and the rate such traffic can reach: PyTorch's
+    in-place add over a slab of as many bytes as the case's pools, read and
+    written once (``torch_add``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from cudadepthmapintegration_torch.kernels import sparse_cuda as sc
+    from cudadepthmapintegration_torch.kernels._build import check
+
+    nvidia_smi()
+    params = sparse_params()
+    views = sparse_views()
+    grid = sparse_case_grid(params, views)
+    batch = grid.frame_batch(views[3])
+    args = (batch.slots, batch.origins, batch.proj_rows, grid.axes, batch.depth)
+    shapes = {f"vx{vx}_b{nb}": {"CDMI_SPARSE_VX": vx, "CDMI_SPARSE_BLOCKS": nb,
+                                "CDMI_SPARSE_COLOR_VX": vx, "CDMI_SPARSE_COLOR_BLOCKS": nb}
+              for vx, nb in SPARSE_SHAPES}
+    with tempfile.TemporaryDirectory(prefix="cdmi_shapes_") as tmp:
+        t0 = time.perf_counter()
+        built = build_shapes("sparse_fuse.cu", shapes, tmp)
+        tables = {name: ptxas_kernels(log) for name, (_, log) in built.items()}
+        spill = {name: sum(s for _, s in t.values()) for name, t in tables.items()}
+        emit(dict(phase="sparse_shapes_build", seconds=time.perf_counter() - t0,
+                  library_shape=library_shape("sparse_fuse.cu"),
+                  registers={name: {k: r for k, (r, _) in t.items()} for name, t in tables.items()},
+                  spill_bytes=spill))
+        if any(spill.values()):
+            raise AssertionError(f"ptxas spilled in a sparse shape ({spill})")
+        entries = {name: lib.cdmi_sparse_fuse_rows for name, (lib, _) in built.items()}
+        entries["general"] = next(iter(built.values()))[0].cdmi_sparse_fuse
+        for colour in (False, True):
+            names = ("pool", "color_pool", "weight_pool") if colour else ("pool",)
+            plain = {k: getattr(grid, k).clone() for k in names}
+            sc.sparse_fuse_torch(plain["pool"], *args, params)
+            if colour:
+                sc.sparse_accumulate_color_torch(plain["color_pool"], plain["weight_pool"], *args,
+                                                 batch.rgb, grid.color_band)
+            ms = {name: [] for name in entries}
+            for _ in range(2):
+                for name, entry in entries.items():
+                    pools = {k: getattr(grid, k).clone() for k in names}
+                    extra = {}
+                    if colour:
+                        extra = dict(color_pool=pools["color_pool"],
+                                     weight_pool=pools["weight_pool"], rgb=batch.rgb,
+                                     band=grid.color_band)
+                    c_args = sc.launch_args(pools["pool"], *args, params, **extra)
+
+                    def run(entry=entry, c_args=c_args, name=name):
+                        check(entry(*c_args), name)
+
+                    run()
+                    torch.cuda.synchronize()
+                    if not all(same_bits(pools[k], plain[k]) for k in names):
+                        raise AssertionError(f"sparse shape {name} differs from the plain version")
+                    ms[name].append(device_ms(run, REPS, SPARSE_KERNEL_NAME, cold=True))
+                    del pools
+            voxels = int(batch.slots.shape[0]) * 512
+            slab = torch.zeros(voxels * (5 if colour else 1), device="cuda")
+            add = [device_ms(lambda: slab.add_(0.0), REPS, "add", cold=True) for _ in range(2)]
+            del slab
+            emit(dict(phase="sparse_shapes", case="colour" if colour else "depth",
+                      blocks=int(batch.slots.shape[0]), equal_bits=True, cold_device_ms=ms,
+                      torch_add_ms=add, fastest=sorted(ms, key=lambda k: min(ms[k]))[:5]))
     return 0
 
 
@@ -1505,6 +1859,7 @@ def main() -> int:
               compiled=_build.BUILD.compiled, library=str(_build.BUILD.path),
               integrate_shape=library_shape("integrate.cu"),
               coloration_shape=library_shape("coloration.cu"),
+              sparse_shape=library_shape("sparse_fuse.cu"),
               spill_bytes=spill,
               ptxas=[ln.strip() for ln in _build.BUILD.log.splitlines()
                      if "entry function" in ln or "registers" in ln or "spill" in ln]))
@@ -1663,12 +2018,10 @@ def main() -> int:
     # 5d. Two processes on this card, joined by torch.distributed.
     multiprocess_phase()
 
-    # 6. The sparse RGB-D path: its kernel vs its plain versions (2 voxels
-    # thick, an 8-voxel band: fuse_rgbd's defaults), then the fuse_rgbd CLI.
-    sparse = sparse_kernel_phase(
-        RayPotential(thick=2 * SPARSE_VOXEL, rho=0.8, eta=0.03, delta=8 * SPARSE_VOXEL))
-    emit(dict(phase="sparse_kernel", **sparse, ok=True))
-    torch.cuda.empty_cache()
+    # 6. The sparse RGB-D path: its kernels vs their plain versions (2
+    # voxels thick, an 8-voxel band: fuse_rgbd's defaults), then the
+    # fuse_rgbd CLI, whose 8^3 blocks go through the row kernel only.
+    sparse, launches["sparse_fuse[general]"] = sparse_kernel_phase(sparse_params())
     with tempfile.TemporaryDirectory(prefix="cdmi_smoke_rgbd_") as tmp:
         launches["sparse_fuse"] = fuse_rgbd_phase(tmp)
 
@@ -1698,12 +2051,18 @@ def main() -> int:
              replaces="cudadepthmapintegration_tpu/ops/coloration.py:115,123",
              launches=launches["coloration_stats"], max_abs_err=max(col["max_abs_err"], stats_err),
              **timing(col["stats"])),
-        dict(name="sparse_fuse", route="cuda",
-             source="cudadepthmapintegration_torch/csrc/sparse_fuse.cu",
-             replaces="cudadepthmapintegration_tpu/kernels/gather_points.py:35",
-             launches=launches["sparse_fuse"],
-             max_abs_err=max(max(sparse[c]["max_abs_err"].values()) for c in ("depth", "colour")),
-             **timing(sparse["colour"])),
+        *(dict(name=name, route="cuda",
+               source="cudadepthmapintegration_torch/csrc/sparse_fuse.cu",
+               replaces="cudadepthmapintegration_tpu/kernels/gather_points.py:35",
+               launches=launches[name],
+               max_abs_err=max(max(sparse[c][m]["max_abs_err"].values())
+                               for c in cases for m in ("depth", "colour")),
+               **timing(sparse[cases[0]]["colour"]),
+               device_ms=sparse[cases[0]]["colour"]["device_ms"],
+               cold_device_ms=sparse[cases[0]]["colour"]["cold_device_ms"],
+               cold_device_share=sparse[cases[0]]["colour"]["cold_device_share"])
+          for name, cases in (("sparse_fuse", ("fr1", "neg_zero", "straddle")),
+                              ("sparse_fuse[general]", ("block_4x6x5",)))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -1720,5 +2079,13 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--gather-time"] and len(sys.argv) == 3:
         sys.exit(gather_time_main(sys.argv[2]))
     if sys.argv[1:2] == ["--gather-ab"] and len(sys.argv) == 3:
-        sys.exit(gather_ab_main(sys.argv[2]))
+        sys.exit(ab_main("gather", sys.argv[2]))
+    if sys.argv[1:] == ["--sparse-cases"]:
+        sys.exit(sparse_cases_main())
+    if sys.argv[1:] == ["--sparse-shapes"]:
+        sys.exit(sparse_shapes_main())
+    if sys.argv[1:2] == ["--sparse-time"] and len(sys.argv) == 3:
+        sys.exit(sparse_time_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sparse-ab"] and len(sys.argv) == 3:
+        sys.exit(ab_main("sparse", sys.argv[2]))
     sys.exit(main())

@@ -52,6 +52,7 @@ _ENTRIES = {
     "cdmi_gather_colors": [_P] * 5 + [_I] * 5 + [_F] + [_I, _P],
     "cdmi_color_stats": [_P, _I] + [_P] * 3 + [_I] * 2 + [_I, _P],
     "cdmi_sparse_fuse": [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P],
+    "cdmi_sparse_fuse_rows": [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P],
 }
 
 

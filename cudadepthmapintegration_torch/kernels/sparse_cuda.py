@@ -1,4 +1,4 @@
-"""Sparse RGB-D update kernel (``csrc/sparse_fuse.cu``) and its plain versions.
+"""Sparse RGB-D update kernels (``csrc/sparse_fuse.cu``) and their plain versions.
 
 :func:`sparse_fuse` adds one frame into the touched blocks of a sparse
 block pool, in place: the ray potential into ``pool`` and, with colour, the
@@ -12,8 +12,11 @@ is fused into the update.
 Dispatch: CPU tensors go to the plain PyTorch versions
 :func:`sparse_fuse_torch` and :func:`sparse_accumulate_color_torch`, which
 read pixels through :func:`gather_pixels_torch` (the counterpart of the
-Pallas gather itself); CUDA tensors launch the kernel or raise. Nothing
-falls back from one to the other.
+Pallas gather itself); CUDA tensors launch one of the two kernels or raise.
+Nothing falls back from one to another. :func:`kernel_for` chooses the
+kernel by the block shape alone: the row kernel (an x-row of a block a
+thread, 16-byte pool traffic) for the library's 8^3 blocks, the general
+kernel (a voxel a thread) for any other shape.
 
 Both follow the JAX order of operations, so on the same inputs they agree
 bit for bit:
@@ -36,15 +39,32 @@ from ..core.ray_potential import RayPotential, ray_potential_torch
 from .integrate_cuda import round_half_away
 
 __all__ = [
+    "ROW_BLOCK",
     "gather_pixels_torch",
+    "kernel_for",
+    "launch_args",
     "launches",
+    "rows_launches",
     "sparse_accumulate_color_torch",
     "sparse_fuse",
     "sparse_fuse_torch",
 ]
 
-# Kernel launches by sparse_fuse since the counter was last set to 0.
+# The block shape the row kernel takes: an x-row of a block is 8 words of
+# pool (two 16-byte vectors) and 24 of colour (six).
+ROW_BLOCK = (8, 8, 8)
+
+# Kernel launches by sparse_fuse since the counters were last set to 0:
+# those of either kernel, and those of the row kernel alone.
 launches = 0
+rows_launches = 0
+
+
+def kernel_for(block_shape) -> str:
+    """The kernel of ``csrc/sparse_fuse.cu`` that :func:`sparse_fuse`
+    launches for blocks of ``block_shape`` (bz, by, bx): ``"rows"`` for
+    :data:`ROW_BLOCK`, ``"general"`` for any other shape."""
+    return "rows" if tuple(block_shape) == ROW_BLOCK else "general"
 
 
 def gather_pixels_torch(
@@ -147,7 +167,12 @@ def sparse_accumulate_color_torch(
     return color_pool, weight_pool
 
 
-def _check_args(pool, slots, origins, proj_rows, axes, depth, color):
+def _check_args(pool, slots, origins, proj_rows, axes, depth, color, for_kernel=False):
+    """Shapes and devices of :func:`sparse_fuse`'s arguments; ``for_kernel``
+    adds what the kernels take: float32 (``slots`` int32, ``rgb`` uint8),
+    contiguous, a map of fewer than 2^31 pixels, and for the row kernel
+    pools aligned to 16 bytes. Returns the tensors by name, ``pool`` among
+    them."""
     if pool.dim() != 4:
         raise ValueError(f"pool must be (capacity, bz, by, bx), got {tuple(pool.shape)}")
     bz, by, bx = _block_shape(pool)
@@ -176,7 +201,62 @@ def _check_args(pool, slots, origins, proj_rows, axes, depth, color):
     for name, t in tensors.items():
         if t.device != pool.device:
             raise ValueError(f"{name} is on {t.device}, the pool on {pool.device}")
+    tensors["pool"] = pool
+    if not for_kernel:
+        return tensors
+    for name, t in tensors.items():
+        want = {"slots": torch.int32, "rgb": torch.uint8}.get(name, torch.float32)
+        if t.dtype != want:
+            raise ValueError(f"the sparse fuse kernel takes {name} as {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"the sparse fuse kernel needs a contiguous {name}")
+    if depth.numel() >= 1 << 31:
+        raise ValueError(f"the sparse fuse kernel takes maps of fewer than 2^31 pixels, "
+                         f"got {tuple(depth.shape)}")
+    if kernel_for((bz, by, bx)) == "rows":
+        for name in ("pool", "color_pool", "weight_pool"):
+            if name in tensors and tensors[name].data_ptr() % 16:
+                raise ValueError(f"the row kernel needs {name} aligned to 16 bytes")
     return tensors
+
+
+def launch_args(
+    pool: torch.Tensor,
+    slots: torch.Tensor,
+    origins: torch.Tensor,
+    proj_rows: torch.Tensor,
+    axes: torch.Tensor,
+    depth: torch.Tensor,
+    params: RayPotential,
+    color_pool: torch.Tensor | None = None,
+    weight_pool: torch.Tensor | None = None,
+    rgb: torch.Tensor | None = None,
+    band: float = 0.0,
+) -> tuple:
+    """The arguments of either C entry of ``csrc/sparse_fuse.cu``
+    (``cdmi_sparse_fuse_rows``, ``cdmi_sparse_fuse``) for CUDA tensors that
+    :func:`sparse_fuse` would take, checked as it checks them: pointers,
+    shapes, the ray potential's scalars, the device and its current
+    stream."""
+    if rgb is not None and (color_pool is None or weight_pool is None):
+        raise ValueError("rgb needs color_pool and weight_pool")
+    color = None if rgb is None else (color_pool, weight_pool, rgb)
+    tensors = _check_args(pool, slots, origins, proj_rows, axes, depth, color, for_kernel=True)
+    bz, by, bx = _block_shape(pool)
+    h, w = depth.shape
+    s = params.scalars()
+    dev = pool.device.index  # always set on a CUDA tensor
+
+    def ptr(name):
+        return tensors[name].data_ptr() if name in tensors else None
+
+    return (
+        pool.data_ptr(), slots.data_ptr(), origins.data_ptr(), proj_rows.data_ptr(),
+        axes.data_ptr(), depth.data_ptr(), ptr("rgb"), ptr("color_pool"), ptr("weight_pool"),
+        slots.shape[0], bz, by, bx, axes.shape[1], h, w, s["thick"], s["rho"], s["delta"],
+        s["rho_over_thick"], s["neg_eta_rho"], float(band), dev,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
 
 
 def sparse_fuse(
@@ -197,12 +277,13 @@ def sparse_fuse(
     With ``rgb`` (h, w, 3) uint8, ``color_pool`` and ``weight_pool`` also
     accumulate colour within ``band`` of the surface. CPU tensors run
     :func:`sparse_fuse_torch` (and :func:`sparse_accumulate_color_torch`).
-    CUDA tensors launch the kernel of ``csrc/sparse_fuse.cu`` once on the
-    current stream and count it in :data:`launches`; they must be float32
-    (``slots`` int32, ``rgb`` uint8), contiguous and on one device, and the
-    slots unique.
+    CUDA tensors launch the kernel :func:`kernel_for` names once on the
+    current stream and count it in :data:`launches` (and the row kernel in
+    :data:`rows_launches`); they must be float32 (``slots`` int32, ``rgb``
+    uint8), contiguous and on one device, the pools of the row kernel
+    aligned to 16 bytes, and the slots unique.
     """
-    global launches
+    global launches, rows_launches
     color = None if rgb is None else (color_pool, weight_pool, rgb)
     if rgb is not None and (color_pool is None or weight_pool is None):
         raise ValueError("rgb needs color_pool and weight_pool")
@@ -215,34 +296,17 @@ def sparse_fuse(
         return
     if pool.device.type != "cuda":
         raise ValueError(f"no sparse fuse kernel for device {pool.device}")
-    tensors = _check_args(pool, slots, origins, proj_rows, axes, depth, color)
-    tensors["pool"] = pool
-    for name, t in tensors.items():
-        want = {"slots": torch.int32, "rgb": torch.uint8}.get(name, torch.float32)
-        if t.dtype != want:
-            raise ValueError(f"the sparse fuse kernel takes {name} as {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"the sparse fuse kernel needs a contiguous {name}")
+    args = launch_args(pool, slots, origins, proj_rows, axes, depth, params, color_pool,
+                       weight_pool, rgb, band)
     from ._build import check, load_library
 
     lib = load_library()
-    bz, by, bx = _block_shape(pool)
-    h, w = depth.shape
-    s = params.scalars()
-    dev = pool.device.index  # always set on a CUDA tensor
-
-    def ptr(name):
-        return tensors[name].data_ptr() if name in tensors else None
-
+    kind = kernel_for(_block_shape(pool))
+    entry = lib.cdmi_sparse_fuse_rows if kind == "rows" else lib.cdmi_sparse_fuse
     # The library sets the device it launches on; the guard restores the
     # caller's current device afterwards.
-    with torch.cuda.device(dev):
-        err = lib.cdmi_sparse_fuse(
-            pool.data_ptr(), slots.data_ptr(), origins.data_ptr(), proj_rows.data_ptr(),
-            axes.data_ptr(), depth.data_ptr(), ptr("rgb"), ptr("color_pool"),
-            ptr("weight_pool"), slots.shape[0], bz, by, bx, axes.shape[1], h, w,
-            s["thick"], s["rho"], s["delta"], s["rho_over_thick"], s["neg_eta_rho"],
-            float(band), dev, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(err, "cdmi_sparse_fuse")
+    with torch.cuda.device(pool.device):
+        err = entry(*args)
+    check(err, f"cdmi_sparse_fuse ({kind} kernel)")
     launches += 1
+    rows_launches += int(kind == "rows")
