@@ -13,6 +13,16 @@ process, on synthetic datasets:
 
 * the main path: ``cudareconstruction`` at 512^3 cells from 64 views of
   512x512, then ``coloration`` of the mesh it wrote;
+* on the main path's dataset and volume: ``ReconstructionFilter`` (phase
+  ``filter``, bit-equal to the CLI's volume), the contour by its three
+  routes, device with the host or the device weld and the native float64
+  walker (phase ``mesh_backends``: seconds, bytes copied to the host, the
+  device weld bit-equal to the host weld), the views' zlib blocks decoded
+  by the native codec and by Python ``zlib`` (phase ``vti_decode``), and
+  ``cudareconstruction --trace --metrics`` at 256^3 in a process of its own
+  (``--trace-metrics DIR``; phase ``trace_metrics``: the trace must name the
+  integrate kernel). The build phase also builds the native host library
+  (``make -C native``);
 * the integrate kernel at the shapes of the JAX package's other kernel
   modes (phase ``integrate_modes``): ``windows`` through the z-sharded
   staging on four slabs of one card, a straight-down mapping scan, 4K maps
@@ -22,7 +32,8 @@ process, on synthetic datasets:
   ``checkpoint``);
 * multi-device fusion on a four-slab mesh of one card: the sharded
   pipeline, frustum culling, interleaved slabs, view-parallel fusion, and
-  the sharded cell->point, isosurface and coloration (phase ``sharded``),
+  the sharded cell->point, isosurface (on the card, and with the native
+  walker against the dense native mesh) and coloration (phase ``sharded``),
   each option of the z-slab path timed against its default (phase
   ``shard_options``);
 * multi-process fusion: two processes of this script (``--mp-worker``) on
@@ -166,6 +177,18 @@ SPARSE_KERNEL_NAME = "sparse_fuse"
 # (it spilled), so (4, 8) is left out.
 SPARSE_SHAPES = tuple((vx, nb) for vx in (1, 2, 4, 8) for nb in (1, 2, 4, 8)
                       if nb * 512 // vx <= 1024 and (vx, nb) != (4, 8))
+# The grid extent of the main path along each axis, [-1.6, 1.6].
+EXTENT = 3.2
+# The keys of the metrics report, as the JAX package writes them
+# (cudadepthmapintegration_tpu/utils/profiling.py, FusionMetrics.report).
+METRICS_KEYS = ["voxels", "views", "seconds", "voxel_updates_per_sec", "views_per_sec",
+                "hbm_roofline_fraction"]
+# reconstruct --trace --metrics runs at 256^3 cells, so its .vts write stays
+# short.
+TRACE_DIMS = 257
+# Each meshing route on the main path's volume is timed this many times, in
+# turns with the others; the median is kept.
+MESH_REPS = 3
 
 
 def emit(record: dict) -> None:
@@ -1292,6 +1315,290 @@ def cli_plain_phase(tmp, cfg, volume):
         raise AssertionError("the CLI's fused volume differs from the plain version")
 
 
+def main_cli_args(tmp, mesh_path, grid_path, dims=None):
+    """``cudareconstruction`` flags of the main path on the dataset in
+    ``tmp`` (``dims`` grid points an axis, ``DIMS`` by default): the ray
+    potential 2 and 8 voxels of the 512^3 grid thick."""
+    spacing = 3.2 / (DIMS - 1)
+    return [
+        "--gridDims", str(dims or DIMS), "--gridOrigin", "-1.6", "-1.6", "-1.6",
+        "--gridEnd", "1.6", "1.6", "1.6",
+        "--rayThick", repr(2 * spacing), "--rayDelta", repr(8 * spacing),
+        "--rayRho", "0.8", "--rayEta", "0.03",
+        "--threshBestCost", "0.5", "--contour", "1.0",
+        "--dataFolder", tmp, "--outputMeshFilename", mesh_path,
+        "--outputGridFilename", grid_path, "--device", "cuda",
+    ]
+
+
+def filter_phase(tmp, cfg, grid, volume):
+    """``ReconstructionFilter.update()`` on the card over the main path's
+    dataset, with the CLI's ray potential, threshold and grid: it fuses the
+    same batches of 32 views, so its volume must have the bits of the CLI's,
+    from two launches of the integrate kernel."""
+    from cudadepthmapintegration_torch.kernels import integrate_cuda
+    from cudadepthmapintegration_torch.pipeline import ReconstructionFilter
+
+    t0 = time.perf_counter()
+    f = (ReconstructionFilter()
+         .set_ray_potential_rho(cfg.ray_rho).set_ray_potential_thickness(cfg.ray_thick)
+         .set_ray_potential_eta(cfg.ray_eta).set_ray_potential_delta(cfg.ray_delta)
+         .set_threshold_best_cost(cfg.threshold_best_cost)
+         .set_file_path_vti(os.path.join(tmp, "vtiList.txt"))
+         .set_file_path_krtd(os.path.join(tmp, "kList.txt"))
+         .set_grid_matrix(grid.matrix)
+         .set_input_grid(grid.dims, grid.origin, grid.spacing)
+         .set_device("cuda"))
+    integrate_cuda.launches = 0
+    f.update()
+    launches = integrate_cuda.launches
+    vol = f.get_output_volume()
+    rec = dict(cells=list(vol.shape), execution_s=f.get_execution_time(), launches=launches,
+               equal_bits=same_bits(vol, volume), seconds=time.perf_counter() - t0)
+    ok = rec["equal_bits"] and launches == 2
+    emit(dict(phase="filter", **rec, ok=ok))
+    if not ok:
+        raise AssertionError("ReconstructionFilter's volume differs from the CLI's, or it "
+                             f"launched the integrate kernel {launches} times, not 2")
+
+
+class _D2HBytes:
+    """Bytes of CUDA tensors copied to the host with ``.cpu()`` while in the
+    block: how the port's meshing routes move data off the card."""
+
+    def __enter__(self):
+        import torch
+
+        self.nbytes = 0
+        self.orig = orig = torch.Tensor.cpu
+
+        def cpu(t, *a, **k):
+            if t.is_cuda:
+                self.nbytes += t.nbytes
+            return orig(t, *a, **k)
+
+        torch.Tensor.cpu = cpu
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.Tensor.cpu = self.orig
+
+
+def mesh_backends_phase(grid, volume, contour):
+    """``extract_isosurface`` of the CLI's volume on the card by three
+    routes, in turns, ``MESH_REPS`` times each: device extraction with the
+    host weld (the main path's), with the device weld, and the native float64
+    host walker. The device weld must give the host weld's mesh bit for bit;
+    the native walker the same triangles, its points within 1e-6 of the
+    extent. Returns the native mesh."""
+    import torch
+
+    from cudadepthmapintegration_torch.ops import extract_isosurface
+
+    t0 = time.perf_counter()
+    vol = torch.from_numpy(volume).cuda()
+    routes = {"device_host_weld": {}, "device_device_weld": dict(weld_backend="device"),
+              "native_host_weld": dict(backend="native")}
+    times = {name: [] for name in routes}
+    meshes, d2h = {}, {}
+    for _ in range(MESH_REPS):
+        for name, kw in routes.items():
+            torch.cuda.synchronize()
+            with _D2HBytes() as copied:
+                t1 = time.perf_counter()
+                meshes[name] = extract_isosurface(grid, vol, contour, **kw)
+                times[name].append(time.perf_counter() - t1)
+            d2h[name] = copied.nbytes
+    del vol
+    torch.cuda.empty_cache()
+    rec = {name: dict(seconds=float(np.median(times[name])), seconds_all=times[name],
+                      d2h_bytes=d2h[name], points=meshes[name].num_points,
+                      triangles=meshes[name].num_triangles) for name in routes}
+    host, dev, nat = (meshes[name] for name in routes)
+    weld_equal = (np.array_equal(dev.points, host.points) and dev.points.dtype == host.points.dtype
+                  and np.array_equal(dev.triangles, host.triangles)
+                  and np.array_equal(dev.point_data["Normals"], host.point_data["Normals"]))
+    same_points = nat.num_points == host.num_points
+    nat_err = float(np.abs(nat.points - host.points).max()) if same_points else None
+    rec.update(device_weld_equal=bool(weld_equal),
+               native_triangles_equal=bool(np.array_equal(nat.triangles, host.triangles)),
+               native_points_max_abs_err=nat_err, native_points_atol=1e-6 * EXTENT,
+               seconds=time.perf_counter() - t0)
+    ok = (rec["device_weld_equal"] and rec["native_triangles_equal"] and same_points
+          and nat_err <= 1e-6 * EXTENT and host.num_triangles > 0)
+    emit(dict(phase="mesh_backends", **rec, ok=ok))
+    if not ok:
+        raise AssertionError("a meshing route disagrees with the main path's")
+    return nat
+
+
+def vti_decode_phase(tmp):
+    """The main path's 64 views read back as written (uncompressed), then a
+    zlib-compressed copy of each read with the native codec and with Python
+    ``zlib``, in turns (native, zlib, zlib, native): every array equal."""
+    from cudadepthmapintegration_torch import native
+    from cudadepthmapintegration_torch.io import read_vti, write_vti
+
+    names = [f"f{i:03d}.vti" for i in range(N_VIEWS)]
+    zdir = os.path.join(tmp, "zlib")
+    os.makedirs(zdir)
+
+    def read_all(folder):
+        t0 = time.perf_counter()
+        images = [read_vti(os.path.join(folder, n)) for n in names]
+        return time.perf_counter() - t0, images
+
+    raw_s, raw = read_all(tmp)
+    t0 = time.perf_counter()
+    for n, image in zip(names, raw):
+        write_vti(os.path.join(zdir, n), image, compress=True)
+    write_s = time.perf_counter() - t0
+    available, decoded, secs = native.available, {}, {"native": [], "zlib": []}
+    for codec in ("native", "zlib", "zlib", "native"):
+        native.available = available if codec == "native" else (lambda: False)
+        try:
+            s, decoded[codec] = read_all(zdir)
+        finally:
+            native.available = available
+        secs[codec].append(s)
+
+    def arrays(image):
+        return {**{f"point/{k}": v for k, v in image.point_data.items()},
+                **{f"cell/{k}": v for k, v in image.cell_data.items()}}
+
+    equal = all(
+        arrays(a).keys() == arrays(b).keys() == arrays(c).keys()
+        and all(np.array_equal(arrays(a)[k], arrays(b)[k]) and np.array_equal(arrays(a)[k], arrays(c)[k])
+                for k in arrays(a))
+        for a, b, c in zip(raw, decoded["native"], decoded["zlib"]))
+    rec = dict(views=N_VIEWS, arrays=sorted(arrays(raw[0])), vti_decode_s=dict(
+                   uncompressed=raw_s, native=secs["native"], zlib=secs["zlib"]),
+               compressed_mb=sum(os.path.getsize(os.path.join(zdir, n)) for n in names) / 1e6,
+               uncompressed_mb=sum(os.path.getsize(os.path.join(tmp, n)) for n in names) / 1e6,
+               compress_write_s=write_s, equal=bool(equal))
+    emit(dict(phase="vti_decode", **rec, ok=rec["equal"]))
+    if not equal:
+        raise AssertionError("the native codec and Python zlib decoded different arrays")
+
+
+def trace_metrics_main(tmp) -> int:
+    """``--trace-metrics DIR``: ``cudareconstruction --device cuda --trace
+    --metrics`` at 256^3 cells on the main path's dataset in ``DIR``, in a
+    fresh process (late in a long process ``torch.profiler`` recorded no
+    device time, PERF.md section 7), between two runs with ``--metrics``
+    only, for the trace's cost: the first pays the process's first CUDA
+    work, the last is warm like the traced one. Prints one line: the
+    integrate launches of the traced run, each run's seconds and pipeline
+    phases, the seconds the trace takes to start and to stop and write its
+    file, the metrics report, the kernels the trace names on the card, and
+    the allocator's bytes after the traced run."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from cudadepthmapintegration_torch.cli import reconstruct
+    from cudadepthmapintegration_torch.kernels import integrate_cuda
+    from cudadepthmapintegration_torch.utils import device_memory_stats, profiling
+    from cudadepthmapintegration_torch.utils.log import Log
+
+    logs, trace_s = [], {}
+    trace = profiling.trace
+
+    class TimedTrace:
+        """``profiling.trace``, its start and its stop and write timed."""
+
+        def __init__(self, log_dir):
+            self.ctx = trace(log_dir)
+
+        def __enter__(self):
+            t0 = time.perf_counter()
+            out = self.ctx.__enter__()
+            trace_s["start"] = time.perf_counter() - t0
+            return out
+
+        def __exit__(self, *exc):
+            t0 = time.perf_counter()
+            out = self.ctx.__exit__(*exc)
+            trace_s["stop_and_write"] = time.perf_counter() - t0
+            return out
+
+    profiling.trace = TimedTrace
+
+    class KeptLog(Log):
+        """The CLI's log, kept for its phase timers."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            logs.append(self)
+
+    reconstruct.Log = KeptLog
+    out = os.path.join(tmp, "trace_metrics")
+    trace_dir, metrics = os.path.join(out, "trace"), os.path.join(out, "metrics.json")
+    os.makedirs(out)
+    args = main_cli_args(tmp, os.path.join(out, "mesh.vtp"), os.path.join(out, "grid.vts"),
+                         dims=TRACE_DIMS) + ["--mhaPath", "", "--metrics", metrics]
+    runs = {}
+    for name, extra in (("untraced_first", []), ("traced", ["--trace", trace_dir]),
+                        ("untraced", [])):
+        integrate_cuda.launches = 0
+        t0 = time.perf_counter()
+        rc = reconstruct.main(args + extra)
+        runs[name] = dict(cli_s=time.perf_counter() - t0, launches=integrate_cuda.launches,
+                          phases_s=logs[-1].timings)
+        if rc != 0:
+            raise AssertionError(f"reconstruct {' '.join(extra)} --metrics exited {rc}")
+        if name == "traced":
+            memory = device_memory_stats("cuda:0")
+            with open(metrics) as f:
+                report = json.load(f)
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    emit(dict(launches=runs["traced"]["launches"], runs=runs, trace_s=trace_s, report=report,
+              trace_file=trace_file,
+              trace_mb=os.path.getsize(os.path.join(trace_dir, trace_file)) / 1e6,
+              trace_events=len(events), device_kernel_names=len(kernels),
+              integrate_kernels=[k[:100] for k in kernels if "integrate_kernel" in k],
+              integrate_kernel_events=sum(1 for e in events if e.get("cat") == "kernel"
+                                          and "integrate_kernel" in e["name"]),
+              memory=memory))
+    return 0
+
+
+def trace_metrics_phase(tmp):
+    """``reconstruct --trace --metrics`` in a process of its own
+    (``--trace-metrics``): the trace must name the integrate kernel among
+    the card's events, and the report carry the JAX keys, 64 views, 256^3
+    voxels, a positive rate and an HBM fraction under 1.05."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-metrics", tmp],
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0:
+        print(proc.stdout, proc.stderr[-4000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"--trace-metrics exited {proc.returncode}")
+    rec = json.loads(lines[-1])
+    report = rec["report"]
+    fraction = report.get("hbm_roofline_fraction")
+    checks = dict(
+        trace_names_integrate_kernel=rec["integrate_kernel_events"] > 0,
+        report_keys=list(report) == METRICS_KEYS,
+        views=report.get("views") == N_VIEWS,
+        voxels=report.get("voxels") == (TRACE_DIMS - 1) ** 3,
+        rate=(report.get("voxel_updates_per_sec") or 0) > 0,
+        fraction=fraction is not None and 0 < fraction < 1.05,
+        launches=rec["launches"] == 2,
+    )
+    emit(dict(phase="trace_metrics", **rec, checks=checks, seconds=time.perf_counter() - t0,
+              ok=all(checks.values())))
+    if not all(checks.values()):
+        raise AssertionError(f"reconstruct --trace --metrics failed {[k for k, v in checks.items() if not v]}")
+
+
 def checkpoint_phase(tmp, cli_args, plain_volume, captured):
     """``cudareconstruction --checkpoint``: an uninterrupted run in units of
     16 views, then a run preempted by a non-transient error in its third
@@ -1380,10 +1687,11 @@ def checkpoint_phase(tmp, cli_args, plain_volume, captured):
     captured.clear()
 
 
-def sharded_phase(tmp, params, contour):
+def sharded_phase(tmp, params, contour, native_mesh):
     """Multi-device fusion of the main path's dataset on four z-slabs of one
-    card, against the single-device path; returns the launches of the
-    sharded pipeline and of the sharded coloration."""
+    card, against the single-device path; the sharded isosurface by the
+    device route against the dense one, and by the native walker against
+    ``native_mesh`` (the dense native mesh of phase ``mesh_backends``)."""
     import torch
 
     from cudadepthmapintegration_torch.io import DepthMapDataset
@@ -1461,6 +1769,14 @@ def sharded_phase(tmp, params, contour):
                mesh_triangles_equal=bool(np.array_equal(dist.triangles, dense.triangles)),
                mesh_normals_equal=bool(np.array_equal(dist.point_data["Normals"],
                                                       dense.point_data["Normals"])))
+    t1 = time.perf_counter()
+    dist_native = sharded_extract_isosurface(sharded.slabs, grid, contour, mesh4, backend="native")
+    rec["sharded_native_extract_s"] = time.perf_counter() - t1
+    rec["native_mesh_equal"] = bool(
+        np.array_equal(dist_native.points, native_mesh.points)
+        and np.array_equal(dist_native.triangles, native_mesh.triangles)
+        and np.array_equal(dist_native.point_data["Normals"], native_mesh.point_data["Normals"]))
+    del dist_native
     coloration_cuda.launches = coloration_cuda.stats_launches = 0
     t1 = time.perf_counter()
     got = sharded_colorize_points(dist.points, views, mesh4)
@@ -1476,7 +1792,7 @@ def sharded_phase(tmp, params, contour):
           and vp_err <= VIEW_PARALLEL_ATOL and rec["cell_to_point_equal"]
           and dist.num_triangles == dense.num_triangles > 0 and rec["mesh_points_equal"]
           and rec["mesh_triangles_equal"] and rec["mesh_normals_equal"]
-          and rec["coloration_equal"] and launches == 8 and col_launches > 0
+          and rec["native_mesh_equal"] and rec["coloration_equal"] and launches == 8 and col_launches > 0
           and stats_launches > 0)
     emit(dict(phase="sharded", **rec, ok=ok))
     if not ok:
@@ -1837,6 +2153,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
 
+    from cudadepthmapintegration_torch import native
     from cudadepthmapintegration_torch.cli import colorize, reconstruct
     from cudadepthmapintegration_torch.core import RayPotential
     from cudadepthmapintegration_torch.io import read_mha, read_vtp, write_depth_map_vti, write_krtd
@@ -1851,11 +2168,17 @@ def main() -> int:
     emit(dict(phase="device", name=name, count=torch.cuda.device_count(),
               torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi))
 
-    # 2. Build.
+    # 2. Build: the kernels, then the native host library (make -C native)
+    # that the native meshing route and the codec load.
     t0 = time.perf_counter()
     _build.load_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native._load()
+    native_s = time.perf_counter() - t0
     spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", _build.BUILD.log))
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+    emit(dict(phase="build", seconds=build_s, native_seconds=native_s,
+              native_library=str(native.NATIVE_DIR / "build" / native.LIB_NAME),
               compiled=_build.BUILD.compiled, library=str(_build.BUILD.path),
               integrate_shape=library_shape("integrate.cu"),
               coloration_shape=library_shape("coloration.cu"),
@@ -1923,15 +2246,7 @@ def main() -> int:
 
         paths = {k: os.path.join(tmp, k) for k in ("mesh.vtp", "grid.vts", "vol.mha", "col.vtp")}
         spacing = 3.2 / (DIMS - 1)
-        cli_args = [
-            "--gridDims", str(DIMS), "--gridOrigin", "-1.6", "-1.6", "-1.6",
-            "--gridEnd", "1.6", "1.6", "1.6",
-            "--rayThick", repr(2 * spacing), "--rayDelta", repr(8 * spacing),
-            "--rayRho", "0.8", "--rayEta", "0.03",
-            "--threshBestCost", "0.5", "--contour", "1.0",
-            "--dataFolder", tmp, "--outputMeshFilename", paths["mesh.vtp"],
-            "--outputGridFilename", paths["grid.vts"], "--device", "cuda",
-        ]
+        cli_args = main_cli_args(tmp, paths["mesh.vtp"], paths["grid.vts"])
         # The CLIs run in process; keep each reconstruct run's result so
         # that the checkpoint phase can compare volumes.
         captured, configs = [], []
@@ -2000,9 +2315,20 @@ def main() -> int:
         cli_occlusion_phase(tmp, col_args, count)
 
         # The CLI's volume against the plain version on the card, bit for bit.
-        plain_volume = captured.pop().volume
+        cli_result = captured.pop()
+        plain_volume = cli_result.volume
         del mesh, vol, radii, count
         cli_plain_phase(tmp, configs[-1], plain_volume)
+
+        # 5a. The filter API on the same dataset, against the CLI's volume;
+        # the meshing routes on that volume; the views' decode by both
+        # codecs; reconstruct --trace --metrics in a process of its own.
+        filter_phase(tmp, configs[-1], cli_result.grid, plain_volume)
+        native_mesh = mesh_backends_phase(cli_result.grid, plain_volume, 1.0)
+        del cli_result
+        vti_decode_phase(tmp)
+        torch.cuda.empty_cache()
+        trace_metrics_phase(tmp)
 
         # 5b. Resumable fusion on the same dataset, against the CLI run above.
         checkpoint_phase(tmp, cli_args, plain_volume, captured)
@@ -2012,7 +2338,8 @@ def main() -> int:
 
         # 5c. Multi-device fusion on four slabs of this card.
         sharded_phase(tmp, RayPotential(thick=2 * spacing, rho=0.8, eta=0.03,
-                                        delta=8 * spacing), 1.0)
+                                        delta=8 * spacing), 1.0, native_mesh)
+        del native_mesh
         torch.cuda.empty_cache()
 
     # 5d. Two processes on this card, joined by torch.distributed.
@@ -2082,6 +2409,8 @@ if __name__ == "__main__":
         sys.exit(ab_main("gather", sys.argv[2]))
     if sys.argv[1:] == ["--sparse-cases"]:
         sys.exit(sparse_cases_main())
+    if sys.argv[1:2] == ["--trace-metrics"] and len(sys.argv) == 3:
+        sys.exit(trace_metrics_main(sys.argv[2]))
     if sys.argv[1:] == ["--sparse-shapes"]:
         sys.exit(sparse_shapes_main())
     if sys.argv[1:2] == ["--sparse-time"] and len(sys.argv) == 3:

@@ -12,9 +12,9 @@ defaults, and validation rules preserved):
   --outputMeshFilename X.vtp  --outputGridFilename X.vts
   --verbose --summary --forceCubicVoxel
 
-plus ``--dtype``, ``--streamBatch``, ``--mhaPath``, ``--checkpoint`` and
-``--device cuda|cpu`` (default cuda: with no CUDA device the run stops with
-an error).
+plus ``--dtype``, ``--streamBatch``, ``--mhaPath``, ``--checkpoint``,
+``--trace DIR``, ``--metrics FILE`` and ``--device cuda|cpu`` (default cuda:
+with no CUDA device the run stops with an error).
 
 Validation parity: dims/spacing mutually exclusive (main.cxx:249-254); a
 single --gridDims value broadcasts to 3 (main.cxx:257-261); delta >= thick and
@@ -27,6 +27,7 @@ instead of undefined behavior (main.cxx:310-312 reads it unconditionally).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -101,6 +102,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Fault-tolerant fusion: checkpoint view-range units "
                         "to this file; re-running with the same path "
                         "RESUMES after a crash")
+    p.add_argument("--trace", type=str, default=None,
+                   help="Capture a torch.profiler trace of the run (host ops "
+                        "and, on the card, CUDA kernels and copies) into this "
+                        "directory as Chrome trace JSON (the NSight "
+                        "counterpart, reference README:43-50)")
+    p.add_argument("--metrics", type=str, default=None,
+                   help="Write a JSON metrics report (voxel updates/s, "
+                        "views/s, HBM roofline fraction) to this path")
     p.add_argument("--mhaPath", type=str, default="meta_image_volume.mha",
                    help="Path of the always-written meta-image volume; "
                         "'' disables (reference hardcodes cwd)")
@@ -177,15 +186,36 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     pipeline = ReconstructionPipeline(config, log)
+    trace_ctx = contextlib.nullcontext()
+    if args.trace:
+        from ..utils.profiling import trace
+
+        trace_ctx = trace(args.trace)
     try:
-        result = pipeline.run(
-            dataset,
-            output_mesh_path=args.outputMeshFilename,
-            output_grid_path=args.outputGridFilename,
-        )
+        with trace_ctx:
+            result = pipeline.run(
+                dataset,
+                output_mesh_path=args.outputMeshFilename,
+                output_grid_path=args.outputGridFilename,
+            )
     except ValueError as e:
         print(f"Error : {e}", file=sys.stderr)
         return 1
+
+    if args.metrics:
+        import torch
+
+        from ..utils.profiling import FusionMetrics
+
+        chip = torch.cuda.get_device_name() if args.device == "cuda" else ""
+        m = FusionMetrics(seconds=result.execution_time, chip=chip)
+        # One volume read+write sweep per kernel launch, as the integrator
+        # counts them.
+        m.add_fusion(result.grid.num_cells, result.views_fused,
+                     passes=max(1, result.volume_sweeps))
+        with open(args.metrics, "w") as f:
+            f.write(m.json() + "\n")
+        log.info(f"** Metrics written to {args.metrics}")
 
     if args.summary:
         summary_path = os.path.join(args.dataFolder, "summary.txt")

@@ -24,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import native
+
 __all__ = [
     "VTK_TO_NUMPY",
     "NUMPY_TO_VTK",
@@ -112,11 +114,17 @@ def parse_vtk_xml(path: str) -> tuple[ET.Element, _FileContext]:
 def _decompress_blocks(buf: bytes, header_dtype) -> bytes:
     """Decode VTK's compressed block stream: header ints
     [nblocks, block_size, last_block_size, csize_0..csize_{n-1}] followed by
-    the concatenated zlib blocks (Python ``zlib``; no native codec)."""
+    the concatenated zlib blocks. The native codec inflates them when the
+    native library is available, Python ``zlib`` otherwise: the same bytes
+    either way."""
     itemsize = np.dtype(header_dtype).itemsize
     nblocks = int(np.frombuffer(buf[:itemsize], dtype=header_dtype)[0])
     header_len = (3 + nblocks) * itemsize
-    csizes = np.frombuffer(buf[:header_len], dtype=header_dtype)[3:]
+    header = np.frombuffer(buf[:header_len], dtype=header_dtype)
+    csizes = header[3:]
+    if nblocks > 0 and native.available():
+        total = int(header[1]) * (nblocks - 1) + int(header[2])
+        return native.zlib_decode_blocks(buf[header_len:], csizes.astype(np.int64), total)
     out = []
     off = header_len
     for cs in csizes:

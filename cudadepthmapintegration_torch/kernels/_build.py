@@ -12,8 +12,14 @@ a plain C interface, which is loaded with ``ctypes``:
 ``<hash>`` is a content hash of the sources (``*.cu`` and the ``*.cuh``
 headers they include), so an edited source rebuilds.
 ``--fmad=false`` is part of the kernels' contract: it keeps every
-multiply-add unfused, as the parity rules require. The library lives in
-``cudadepthmapintegration_torch/build/`` (ignored by git).
+multiply-add unfused, as the parity rules require.
+
+The library lives in the build directory (:func:`build_dir`):
+``$CDMI_TORCH_BUILD_DIR`` when that is set, else
+``cudadepthmapintegration_torch/build/`` (ignored by git) when it can be
+written, else ``~/.cache/cdmi_torch`` (a read-only install). Built once per
+source hash, it persists across runs, as the JAX package's compile cache
+does (``cli/_cache.py`` there).
 
 Nothing here runs at import: the CPU tests import the kernel modules on a
 machine with neither a GPU nor ``nvcc``. A failed build raises with nvcc's
@@ -32,11 +38,11 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD", "BuildInfo", "check", "load_library"]
+__all__ = ["BUILD", "BuildInfo", "build_dir", "check", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+PKG_BUILD_DIR = _PKG / "build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
@@ -87,6 +93,17 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """Where the library is built and looked for."""
+    override = os.environ.get("CDMI_TORCH_BUILD_DIR")
+    if override:
+        return Path(override).expanduser()
+    probe = PKG_BUILD_DIR if PKG_BUILD_DIR.exists() else PKG_BUILD_DIR.parent
+    if os.access(probe, os.W_OK | os.X_OK):
+        return PKG_BUILD_DIR
+    return Path.home() / ".cache" / "cdmi_torch"
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -107,11 +124,11 @@ def _run_failed(cmd: list[str], rc: int, output: str) -> RuntimeError:
 
 def _compile(sources: list[Path], out: Path) -> str:
     """One nvcc per source, all started together, then one link."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
-    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = out.parent / f"{tag}.so.tmp"
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objs)]
     try:
@@ -140,7 +157,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = _sources()
-        out = BUILD_DIR / f"libcdmi_torch_{_digest(sources)}.so"
+        out = build_dir() / f"libcdmi_torch_{_digest(sources)}.so"
         if not out.exists():
             t0 = time.perf_counter()
             BUILD.log = _compile(sources, out)

@@ -2,7 +2,8 @@
 
 Replaces the VTK pipeline ``vtkCellDataToPointData`` -> ``vtkContourFilter``
 -> ``vtkTransformFilter`` (``Reconstruction/main.cxx:150-189``); the port of
-``marching_cubes(backend="jax")`` in the JAX package:
+``marching_cubes`` in the JAX package, whose ``backend="jax"`` is this
+module's ``backend="device"``:
 
 * **Phase 1 (dense, on the volume's device):** the 8-bit cube configuration
   of every cell of the point-scalar volume, from elementwise compares and
@@ -13,8 +14,13 @@ Replaces the VTK pipeline ``vtkCellDataToPointData`` -> ``vtkContourFilter``
   triangles with vertices interpolated along cube edges, in chunks of
   :data:`CELL_CHUNK` cells; each vertex carries the *global canonical edge
   id* of the edge it lies on.
-* **Weld (host):** the compacted soup is welded by exact integer edge key
-  (:func:`_weld_triangle_soup`), matching vtkContourFilter's merged points.
+* **Weld:** the compacted soup is welded by exact integer edge key,
+  matching vtkContourFilter's merged points: on the host
+  (:func:`_weld_triangle_soup`, the default) or on the device
+  (:func:`weld_soup_device`, ``weld_backend="device"``), bit for bit alike.
+
+``backend="native"`` walks the volume on the host in float64 instead, with
+the native library's table walker (``native.py``), and welds on the host.
 
 The isovalue convention matches VTK: vertices interpolate where the scalar
 crosses ``iso``; cells entirely >= or < iso produce nothing.
@@ -109,6 +115,14 @@ def _active_cell_triangles(points_flat, iso, cell_idx, cfg, xs, ys, zs, dims):
     return verts, keys, valid
 
 
+def _transform_points(points: np.ndarray, matrix: np.ndarray | None) -> np.ndarray:
+    """The grid-matrix transform of mesh points, in float64 on the host."""
+    if matrix is None:
+        return points
+    m = np.asarray(matrix, dtype=np.float64)
+    return points @ m[:3, :3].T + m[:3, 3]
+
+
 def _weld_triangle_soup(
     used_verts: np.ndarray,  # (M, 3) vertex positions, 3 per triangle
     used_keys: np.ndarray,  # (M,) canonical edge ids
@@ -124,7 +138,8 @@ def _weld_triangle_soup(
     points = np.zeros((uniq.shape[0], 3), dtype=used_verts.dtype)
     # Last write wins per key. Duplicates agree to 1 ulp (two cells
     # interpolate the shared edge with opposite corner order), so the
-    # deterministic pick matters only for bit-level reproducibility.
+    # deterministic pick matters only for bit-level reproducibility —
+    # weld_soup_device selects the same occurrence.
     points[inverse] = used_verts
     triangles = inverse.reshape(-1, 3).astype(np.int64)
     ok = (
@@ -132,62 +147,65 @@ def _weld_triangle_soup(
         & (triangles[:, 1] != triangles[:, 2])
         & (triangles[:, 0] != triangles[:, 2])
     )
-    triangles = triangles[ok]
-    if matrix is not None:
-        m = np.asarray(matrix, dtype=np.float64)
-        points = points @ m[:3, :3].T + m[:3, 3]
-    mesh = PolyData(points, triangles)
+    mesh = PolyData(_transform_points(points, matrix), triangles[ok])
     return (mesh, uniq) if return_keys else mesh
 
 
-def marching_cubes(
-    point_volume: torch.Tensor,
-    iso: float,
-    xs: np.ndarray,
-    ys: np.ndarray,
-    zs: np.ndarray,
-    matrix: np.ndarray | None = None,
-    compute_normals: bool = False,
-    return_soup: bool = False,
-) -> PolyData | tuple[np.ndarray, np.ndarray]:
-    """Extract the `iso` isosurface of a (nz, ny, nx) point-scalar volume.
+def weld_soup_device(
+    verts: torch.Tensor, keys: torch.Tensor
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Weld a triangle soup on its device: only the final mesh (unique
+    points, triangles, unique keys) crosses to the host. Returns (points
+    (V, 3) in the soup's dtype, triangles (T, 3) int64, keys (V,)), bit for
+    bit what :func:`_weld_triangle_soup` gives without a matrix.
 
-    ``xs/ys/zs`` are the per-axis point coordinates (grid frame); ``matrix``
-    (4x4) is applied to the output vertices, mirroring the transform filter
-    at ``Reconstruction/main.cxx:176-189``. Extraction runs on the volume's
-    device; the compacted soup is welded on the host.
+    A stable sort of the keys puts equal keys in runs in their original
+    order. The host weld scatters the soup in original order, so the LAST
+    original occurrence of each key wins: duplicates may differ by one ulp
+    (two cells interpolate the shared edge with opposite corner order), so
+    the last element of each run is the one kept, not the first."""
+    sorted_keys, order = torch.sort(keys, stable=True)
+    step = sorted_keys[1:] != sorted_keys[:-1]
+    edge = torch.ones(1, dtype=torch.bool, device=keys.device)
+    first = torch.cat([edge, step])
+    last = torch.cat([step, edge])
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.cumsum(first, 0) - 1
+    tri = inverse.reshape(-1, 3)
+    ok = (tri[:, 0] != tri[:, 1]) & (tri[:, 1] != tri[:, 2]) & (tri[:, 0] != tri[:, 2])
+    return (
+        verts[order][last].cpu().numpy(),
+        tri[ok].cpu().numpy(),
+        sorted_keys[last].cpu().numpy(),
+    )
 
-    ``compute_normals=True`` attaches a ``"Normals"`` point array (gradient
-    normals, ``ops/normals.py`` — vtkContourFilter's ComputeNormals default,
-    see ``Reconstruction/main.cxx:169-173``), transformed by ``matrix`` like
-    the points; it reads the point volume on the host.
 
-    ``return_soup=True`` skips welding and returns the raw triangle soup
-    ``(verts (M, 3), keys (M,))`` with volume-local edge keys, for callers
-    (the sparse per-block extraction) that translate the keys to a global
-    domain and weld once at the end.
-    """
-    pv = torch.as_tensor(point_volume)
+def _empty_mesh(compute_normals: bool) -> PolyData:
+    empty = PolyData(np.zeros((0, 3)), np.zeros((0, 3), np.int64))
+    if compute_normals:
+        # Non-empty results carry "Normals"; keep the attribute set
+        # shape-stable for consumers that index it unconditionally.
+        empty.point_data["Normals"] = np.zeros((0, 3), np.float32)
+    return empty
+
+
+def _device_soup(pv: torch.Tensor, iso: float, xs, ys, zs):
+    """The compacted triangle soup of the two-phase extraction, on the
+    volume's device: (verts (M, 3), keys (M,)) in cell order, or None when
+    no cell crosses ``iso``."""
     nz, ny, nx = pv.shape
-    np_dtype = numpy_dtype(pv.dtype)
     iso_t = torch.tensor(iso, dtype=pv.dtype, device=pv.device)
     cfg = _cube_config(pv, iso_t).reshape(-1)
     flat_idx = torch.nonzero((cfg != 0) & (cfg != 255)).squeeze(1)
     if flat_idx.numel() == 0:
-        if return_soup:
-            return np.zeros((0, 3)), np.zeros((0,), np.int64)
-        empty = PolyData(np.zeros((0, 3)), np.zeros((0, 3), np.int64))
-        if compute_normals:
-            # Non-empty results carry "Normals"; keep the attribute set
-            # shape-stable for consumers that index it unconditionally.
-            empty.point_data["Normals"] = np.zeros((0, 3), np.float32)
-        return empty
+        return None
     ncx, ncy = nx - 1, ny - 1
     cell_idx = torch.stack(
         [flat_idx // (ncy * ncx), (flat_idx // ncx) % ncy, flat_idx % ncx], dim=1
     )
     cfg_active = cfg[flat_idx].long()
     pvf = pv.reshape(-1)
+    np_dtype = numpy_dtype(pv.dtype)
     axes = [torch.as_tensor(np.asarray(a, np_dtype), device=pv.device) for a in (xs, ys, zs)]
     verts_parts, keys_parts = [], []
     # Chunks keep cell order, so the soup (and the welded mesh) does not
@@ -199,19 +217,86 @@ def marching_cubes(
         )
         verts_parts.append(verts[valid])
         keys_parts.append(keys[valid])
-    flat_verts = torch.cat(verts_parts).cpu().numpy()
-    flat_keys = torch.cat(keys_parts).cpu().numpy()
-    if return_soup:
-        return flat_verts, flat_keys
-    if not compute_normals:
-        return _weld_triangle_soup(flat_verts, flat_keys, matrix)
-    mesh, uniq = _weld_triangle_soup(flat_verts, flat_keys, matrix, return_keys=True)
-    from .normals import normals_for_edge_keys, transform_normals
+    return torch.cat(verts_parts), torch.cat(keys_parts)
 
-    normals = normals_for_edge_keys(pv.cpu().numpy(), xs, ys, zs, uniq, iso)
-    if matrix is not None:
-        normals = transform_normals(normals, matrix)
-    mesh.point_data["Normals"] = normals
+
+def marching_cubes(
+    point_volume: torch.Tensor,
+    iso: float,
+    xs: np.ndarray,
+    ys: np.ndarray,
+    zs: np.ndarray,
+    matrix: np.ndarray | None = None,
+    compute_normals: bool = False,
+    return_soup: bool = False,
+    backend: str = "device",
+    weld_backend: str = "host",
+) -> PolyData | tuple[np.ndarray, np.ndarray]:
+    """Extract the `iso` isosurface of a (nz, ny, nx) point-scalar volume.
+
+    ``xs/ys/zs`` are the per-axis point coordinates (grid frame); ``matrix``
+    (4x4) is applied to the output vertices, mirroring the transform filter
+    at ``Reconstruction/main.cxx:176-189``.
+
+    ``backend``: ``"device"`` (the default) runs the two-phase extraction on
+    the volume's device, in its dtype; ``"native"`` copies the volume to the
+    host and walks it in float64 with the native library's table walker
+    (``native.marching_cubes_f64``), raising if that library cannot be
+    built. ``weld_backend`` (device backend only): ``"host"`` (the default)
+    copies the compacted soup to the host and welds it with ``np.unique``;
+    ``"device"`` welds it on the device (:func:`weld_soup_device`) so that
+    only the final mesh crosses, bit for bit the same mesh.
+
+    ``compute_normals=True`` attaches a ``"Normals"`` point array (gradient
+    normals, ``ops/normals.py`` — vtkContourFilter's ComputeNormals default,
+    see ``Reconstruction/main.cxx:169-173``), transformed by ``matrix`` like
+    the points; it reads the point volume on the host.
+
+    ``return_soup=True`` skips welding and returns the raw triangle soup
+    ``(verts (M, 3), keys (M,))`` with volume-local edge keys, for callers
+    (the sparse per-block and the sharded extraction) that translate the
+    keys to a global domain and weld once at the end.
+    """
+    if backend not in ("device", "native"):
+        raise ValueError(f"backend must be 'device' or 'native', got {backend!r}")
+    if weld_backend not in ("host", "device"):
+        raise ValueError(f"weld_backend must be 'host' or 'device', got {weld_backend!r}")
+    if backend == "native" and weld_backend == "device":
+        raise ValueError("weld_backend='device' needs backend='device'")
+    pv = torch.as_tensor(point_volume)
+    pv_host = None
+    if backend == "native":
+        from .. import native
+
+        pv_host = pv.cpu().numpy().astype(np.float64)
+        verts, keys = native.marching_cubes_f64(pv_host, iso, xs, ys, zs)
+        verts, keys = verts.reshape(-1, 3), keys.reshape(-1)
+        if return_soup:
+            return verts, keys
+        mesh, uniq = _weld_triangle_soup(verts, keys, matrix, return_keys=True)
+    else:
+        soup = _device_soup(pv, iso, xs, ys, zs)
+        if soup is None:
+            if return_soup:
+                return np.zeros((0, 3)), np.zeros((0,), np.int64)
+            return _empty_mesh(compute_normals)
+        if weld_backend == "device" and not return_soup:
+            points, triangles, uniq = weld_soup_device(*soup)
+            mesh = PolyData(_transform_points(points, matrix), triangles)
+        else:
+            verts, keys = (a.cpu().numpy() for a in soup)
+            if return_soup:
+                return verts, keys
+            mesh, uniq = _weld_triangle_soup(verts, keys, matrix, return_keys=True)
+    if compute_normals:
+        from .normals import normals_for_edge_keys, transform_normals
+
+        if pv_host is None:
+            pv_host = pv.cpu().numpy()
+        normals = normals_for_edge_keys(pv_host, xs, ys, zs, uniq, iso)
+        if matrix is not None:
+            normals = transform_normals(normals, matrix)
+        mesh.point_data["Normals"] = normals
     return mesh
 
 
@@ -220,16 +305,20 @@ def extract_isosurface(
     cell_volume,
     iso: float,
     compute_normals: bool = True,
+    backend: str = "device",
+    weld_backend: str = "host",
 ) -> PolyData:
     """Full reference pipeline: cell->point averaging, contour at `iso`
     (with gradient "Normals" — vtkContourFilter's ComputeNormals default),
     grid-matrix transform (``Reconstruction/main.cxx:150-189``).
-    ``cell_volume`` is a tensor (extraction runs on its device) or an
-    array (on the CPU)."""
+    ``cell_volume`` is a tensor (cell->point and the device extraction run
+    on its device) or an array (on the CPU). ``backend`` and
+    ``weld_backend`` pass through to :func:`marching_cubes`."""
     pv = cell_to_point(torch.as_tensor(cell_volume))
     xs, ys, zs = grid.point_axes(numpy_dtype(pv.dtype))
     mesh = marching_cubes(
-        pv, iso, xs, ys, zs, matrix=grid.matrix, compute_normals=compute_normals
+        pv, iso, xs, ys, zs, matrix=grid.matrix, compute_normals=compute_normals,
+        backend=backend, weld_backend=weld_backend,
     )
     # vtkContourFilter's ComputeScalars default is also ON: the output
     # carries the contoured scalars (== iso at every crossing) under the

@@ -3,7 +3,8 @@
 The single-device path (``ops/marching_cubes.extract_isosurface``) needs the
 whole volume on one device. Here each z-slab is converted to point scalars
 with a halo exchange (:func:`.halo.sharded_cell_to_point`), walked with the
-port's marching cubes on its own device using GLOBAL cell offsets, and the
+port's marching cubes (on its own device, or with the native host walker)
+using GLOBAL cell offsets, and the
 per-slab triangle soups are welded by the same canonical global edge keys
 the single-device path uses — so the result is identical to meshing the
 gathered volume, without ever materializing it on one device.
@@ -43,12 +44,16 @@ def sharded_extract_isosurface(
     iso: float,
     mesh: DeviceMesh,
     compute_normals: bool = True,
+    backend: str = "device",
 ) -> PolyData:
     """Contour a z-sharded fused volume (contiguous slabs, e.g.
     ``ShardedTSDFIntegrator.slabs``) into one welded mesh, equal to
     ``extract_isosurface(grid, volume, iso)`` of the gathered volume.
 
-    Each slab's marching cubes runs on its shard's device. With
+    Each slab's marching cubes runs on its shard's device
+    (``backend="device"``), or on the host in float64 with the native
+    walker (``backend="native"``, as ``marching_cubes`` takes it); the
+    slab-local edge keys are translated to global ones the same way. With
     ``compute_normals`` (default, matching the single-device path) each
     slab is pulled with a ONE-PLANE z margin so the central differences at
     slab-boundary nodes see the same neighbour values as the dense path.
@@ -73,7 +78,7 @@ def sharded_extract_isosurface(
         slab_m = _gather_rows(blocks, k0m, k1m + 1, device)
         slab = slab_m[k0 - k0m : k0 - k0m + bz + 1]
         verts, keys = marching_cubes(
-            slab, iso, xs, ys, zs[k0 : k0 + bz + 1], return_soup=True
+            slab, iso, xs, ys, zs[k0 : k0 + bz + 1], return_soup=True, backend=backend
         )
         if len(keys) == 0:
             continue

@@ -1,6 +1,7 @@
-"""High-level pipelines: reconstruction and coloration."""
+"""High-level pipelines: reconstruction, coloration and the filter API."""
 
 from .coloration import ColorationConfig, ColorationPipeline
+from .filter import ReconstructionFilter
 from .reconstruction import (
     ReconstructionConfig,
     ReconstructionPipeline,
@@ -11,6 +12,7 @@ from .streaming import batched, prefetch_views
 __all__ = [
     "ColorationConfig",
     "ColorationPipeline",
+    "ReconstructionFilter",
     "ReconstructionConfig",
     "ReconstructionPipeline",
     "ReconstructionResult",

@@ -1,5 +1,12 @@
-"""Utilities: logging, phase timing and dtype conversions."""
+"""Utilities: logging, phase timing, dtype conversions and profiling."""
 
 from .log import RAY_POTENTIAL_ASCII, Log
+from .profiling import FusionMetrics, device_memory_stats, trace
 
-__all__ = ["Log", "RAY_POTENTIAL_ASCII"]
+__all__ = [
+    "FusionMetrics",
+    "Log",
+    "RAY_POTENTIAL_ASCII",
+    "device_memory_stats",
+    "trace",
+]

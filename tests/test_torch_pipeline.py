@@ -112,7 +112,11 @@ def test_meshes_agree(runs):
     assert a.num_triangles == b.num_triangles > 100
     assert a.num_points == b.num_points
     assert sorted(a.point_data) == sorted(b.point_data)
-    np.testing.assert_allclose(b.points, a.points, rtol=0, atol=0.05)
+    # The JAX CLI contours with the float64 native walker when the native
+    # library is built, the port in float32: the points differ in the last
+    # float32 bits only (measured 5.96e-8 on this scene).
+    np.testing.assert_array_equal(b.triangles, a.triangles)
+    np.testing.assert_allclose(b.points, a.points, rtol=0, atol=1e-6)
     radii = np.linalg.norm(b.points, axis=1)
     assert 0.85 < np.median(radii) < 1.1
 
@@ -201,7 +205,7 @@ def test_wrappers_raise_for_a_device_without_a_kernel():
 
 def _fresh_build(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("CDMI_TORCH_BUILD_DIR", str(tmp_path / "build"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
