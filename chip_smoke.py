@@ -55,10 +55,11 @@ with the occlusion test and on samples that miss every view (phase
 kernels (phase ``cli_occlusion``).
 
 The sparse fuse kernels are held to their plain versions in bit patterns
-on four cases (phase ``sparse_kernel``): one fr1 frame into ~5,600 blocks
+on eight cases (phase ``sparse_kernel``): one fr1 frame into ~5,600 blocks
 of 8^3 (the row kernel), the same from pools of -0.0, the same with blocks
-across the camera plane, behind it and off the image, and (4, 6, 5) blocks
-(the general kernel). Each is timed four ways: CUDA events around a call
+across the camera plane, behind it and off the image, and the frame into
+blocks of (4, 6, 5), 4^3, 16^3 and (3, 5, 7), the last also from pools of
+-0.0 (the general kernel). Each is timed four ways: CUDA events around a call
 (``ms``), the kernel's device time under ``torch.profiler``
 (``device_ms``), the same with the L2 flushed before each call
 (``cold_device_ms``, the yardstick against the byte bound) and the Python
@@ -80,12 +81,15 @@ shape), holds each build to the plain version bit for bit and times it on
 the integrate cases. ``python3 chip_smoke.py --coloration-shapes`` does the
 same for ``csrc/coloration.cu`` (views a gather thread, threads a block of
 each kernel) on one vertex chunk of the coloration phase, and ``python3
-chip_smoke.py --sparse-shapes`` for ``csrc/sparse_fuse.cu`` (voxels a
-thread, blocks a CTA) on the fr1 frame, by cold device time. The library
+chip_smoke.py --sparse-shapes [rows|general]`` for ``csrc/sparse_fuse.cu``
+(the row kernel's voxels a thread and blocks a CTA on the fr1 frame, the
+general kernel's voxels a thread and threads a CTA on the frame's (4, 6, 5)
+blocks), by cold device time. The library
 itself is built with one shape. ``python3 chip_smoke.py --gather-ab DIR``
 times the coloration gather of the checkout unpacked in ``DIR`` against
 this checkout's, each built from its own sources in a process of its own,
-and ``python3 chip_smoke.py --sparse-ab DIR`` the sparse fuse kernel.
+and ``python3 chip_smoke.py --sparse-ab DIR [BZxBYxBX]`` the sparse fuse
+kernel on blocks of that shape (8x8x8 by default).
 """
 
 from __future__ import annotations
@@ -177,6 +181,18 @@ SPARSE_KERNEL_NAME = "sparse_fuse"
 # (it spilled), so (4, 8) is left out.
 SPARSE_SHAPES = tuple((vx, nb) for vx in (1, 2, 4, 8) for nb in (1, 2, 4, 8)
                       if nb * 512 // vx <= 1024 and (vx, nb) != (4, 8))
+# The general kernel's launch shapes `--sparse-shapes` builds with:
+# consecutive voxels a thread, and threads a CTA (at most 512, the source's
+# static_assert). A shape that spills is reported and timed, and is no
+# candidate for the library's shape.
+SPARSE_GEN_SHAPES = tuple((vx, t) for vx in (1, 2, 4, 8) for t in (128, 256, 512))
+# The general kernel's block shapes in phase sparse_kernel: (4, 6, 5), whose
+# time stands in the kernels line; 4^3 and 16^3 (voxblox's default
+# voxels_per_side), as users pick them; (3, 5, 7), whose voxels do not come
+# in whole 16-byte vectors (word traffic), also from pools of -0.0.
+GENERAL_BLOCKS = ((4, 6, 5), (4, 4, 4), (16, 16, 16), (3, 5, 7))
+GENERAL_CASES = (*("block_" + "x".join(map(str, b)) for b in GENERAL_BLOCKS),
+                 "block_3x5x7_neg_zero")
 # The grid extent of the main path along each axis, [-1.6, 1.6].
 EXTENT = 3.2
 # The keys of the metrics report, as the JAX package writes them
@@ -333,12 +349,19 @@ def sparse_params():
     return RayPotential(thick=2 * SPARSE_VOXEL, rho=0.8, eta=0.03, delta=8 * SPARSE_VOXEL)
 
 
-def sparse_case_grid(params, views, block_shape=(8, 8, 8), capacity=SPARSE_CAPACITY):
+def sparse_case_grid(params, views, block_shape=(8, 8, 8)):
     """A colour grid of the sparse path on the card holding the blocks of
     the ``views``' trajectory, with the first three views fused, so that a
-    later frame adds into non-zero pools."""
+    later frame adds into non-zero pools. 8^3 blocks take the path's
+    capacity; other shapes exactly as many blocks as the trajectory touches
+    (16^3 blocks at the path's capacity would be 2.7 GB of pools)."""
     from cudadepthmapintegration_torch.ops.sparse_grid import SparseTSDFGrid
 
+    capacity = SPARSE_CAPACITY
+    if tuple(block_shape) != (8, 8, 8):
+        probe = SparseTSDFGrid(voxel_size=SPARSE_VOXEL, params=params, block_shape=block_shape,
+                               capacity=0, device="cpu")
+        capacity = len(set().union(*(probe._touched_blocks(v) for v in views)))
     grid = SparseTSDFGrid(voxel_size=SPARSE_VOXEL, params=params, block_shape=block_shape,
                           capacity=capacity, with_color=True, device="cuda")
     grid.preallocate(views)  # the trajectory's blocks, as a known-trajectory run would
@@ -383,14 +406,18 @@ def sparse_cases(params):
       row kernel;
     * ``neg_zero``: the same with every pool word -0.0 before the frame;
     * ``straddle``: the same with the blocks of :func:`straddle_batch`;
-    * ``block_4x6x5``: the frame into (4, 6, 5) blocks: the general kernel."""
+    * ``block_4x6x5``, ``block_4x4x4``, ``block_16x16x16``, ``block_3x5x7``:
+      the frame into blocks of each of ``GENERAL_BLOCKS``: the general
+      kernel; ``block_3x5x7_neg_zero``: the last from pools of -0.0."""
     views = sparse_views()
     grid = sparse_case_grid(params, views)
     batch = grid.frame_batch(views[3])
     cases = [("fr1", grid, batch, False), ("neg_zero", grid, batch, True),
              ("straddle", grid, straddle_batch(grid, views[3]), False)]
-    odd = sparse_case_grid(params, views, block_shape=(4, 6, 5), capacity=4 * SPARSE_CAPACITY)
-    cases.append(("block_4x6x5", odd, odd.frame_batch(views[3]), False))
+    for shape, label in zip(GENERAL_BLOCKS, GENERAL_CASES):
+        odd = sparse_case_grid(params, views, block_shape=shape)
+        cases.append((label, odd, odd.frame_batch(views[3]), False))
+    cases.append((GENERAL_CASES[-1], *cases[-1][1:3], True))
     return cases
 
 
@@ -513,8 +540,9 @@ def sparse_cases_main() -> int:
     for label, grid, batch, from_neg_zero in cases:
         out[label] = rec = sparse_case(label, grid, batch, params, from_neg_zero)
         emit(dict(phase="sparse_kernel", case=label, **rec, ok=True))
-    if float(cases[0][1].pool.abs().max()) <= 0.5:
-        raise AssertionError("sparse kernel case: the frames missed the blocks")
+    missed = [label for label, rec in out.items() if not rec["valid_frac"] > 0]
+    if float(cases[0][1].pool.abs().max()) <= 0.5 or missed:
+        raise AssertionError(f"sparse kernel case: the frames missed the blocks {missed}")
     straddle = out["straddle"]
     if not (straddle["blocks_behind"] and straddle["blocks_across_plane"]
             and straddle["voxels_off_image"] and 0 < straddle["valid_frac"] < 1):
@@ -546,7 +574,7 @@ def sparse_kernel_phase(params):
     print("\n".join(lines[:-1]), flush=True)
     out = json.loads(lines[-1])["cases"]
     views = sparse_views()
-    odd = sparse_case_grid(params, views, block_shape=(4, 6, 5), capacity=4 * SPARSE_CAPACITY)
+    odd = sparse_case_grid(params, views, block_shape=(4, 6, 5))
     sc.launches = sc.rows_launches = 0
     odd.integrate_frame(views[3])
     path = dict(all=sc.launches, rows=sc.rows_launches)
@@ -928,12 +956,13 @@ def gather_time_main(root) -> int:
     return 0
 
 
-def ab_main(kind, parent_root) -> int:
-    """``--gather-ab PARENT_ROOT`` and ``--sparse-ab PARENT_ROOT``: the
-    coloration gather (``kind`` ``"gather"``) or the sparse fuse kernel
-    (``"sparse"``) of another checkout, unpacked under ``PARENT_ROOT``,
-    against this one's, each in a process of its own (``--gather-time``,
-    ``--sparse-time``), in the order parent, this, this, parent."""
+def ab_main(kind, parent_root, *extra) -> int:
+    """``--gather-ab PARENT_ROOT`` and ``--sparse-ab PARENT_ROOT [BLOCK]``:
+    the coloration gather (``kind`` ``"gather"``) or the sparse fuse kernel
+    (``"sparse"``; ``extra`` the block shape, see :func:`sparse_time_main`)
+    of another checkout, unpacked under ``PARENT_ROOT``, against this one's,
+    each in a process of its own (``--gather-time``, ``--sparse-time``), in
+    the order parent, this, this, parent."""
     import torch
 
     if not torch.cuda.is_available():
@@ -944,8 +973,8 @@ def ab_main(kind, parent_root) -> int:
     runs = []
     for label, root in (("parent", parent_root), ("this", here), ("this", here),
                         ("parent", parent_root)):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), f"--{kind}-time", root],
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), f"--{kind}-time", root,
+                               *extra], capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise AssertionError(f"--{kind}-time {root} exited {proc.returncode}")
@@ -954,12 +983,14 @@ def ab_main(kind, parent_root) -> int:
     return 0
 
 
-def sparse_time_main(root) -> int:
-    """``--sparse-time ROOT``: the sparse fuse kernel of the package under
-    ``ROOT`` (this checkout or another one), built from that checkout's
-    sources, on the ``fr1`` case of :func:`sparse_cases`, depth only and
-    with colour: held to that package's plain versions in bit patterns,
-    then timed by :func:`sparse_times`. Prints one JSON line."""
+def sparse_time_main(root, block="8x8x8") -> int:
+    """``--sparse-time ROOT [BLOCK]``: the sparse fuse kernel of the package
+    under ``ROOT`` (this checkout or another one), built from that
+    checkout's sources, on frame 3 of :func:`sparse_views` into blocks of
+    ``BLOCK`` (``BZxBYxBX``; 8x8x8, the ``fr1`` case of :func:`sparse_cases`,
+    by default), depth only and with colour: held to that package's plain
+    versions in bit patterns, then timed by :func:`sparse_times`. Prints one
+    JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -971,8 +1002,8 @@ def sparse_time_main(root) -> int:
     nvidia_smi()
     params = sparse_params()
     views = sparse_views()
-    grid = sparse_case_grid(params, views)
-    rec = sparse_case("fr1", grid, grid.frame_batch(views[3]), params)
+    grid = sparse_case_grid(params, views, tuple(int(b) for b in block.split("x")))
+    rec = sparse_case(f"block_{block}", grid, grid.frame_batch(views[3]), params)
     emit(dict(phase="sparse_time", package=os.path.dirname(sparse_cuda.__file__), **rec))
     return 0
 
@@ -980,13 +1011,20 @@ def sparse_time_main(root) -> int:
 def ptxas_kernels(log):
     """``{kernel: (registers, spill bytes)}`` of each entry function of
     ``csrc/sparse_fuse.cu`` in ``nvcc -Xptxas -v`` output, named
-    ``rows[colour]``, ``general[depth]`` and so on."""
+    ``rows[colour]``, ``general[depth]``, ``general[colour,words]`` and so
+    on (the general kernel's word instance, for shapes whose voxels do not
+    come in whole vectors, is marked ``words``)."""
     table, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
+        m = re.search(r"Compiling entry function '\w*?(rows_kernel|fuse_kernel)ILb(\d)E(\w*)'",
+                      line)
         if m:
-            name = (f"{'rows' if 'rows' in m.group(1) else 'general'}"
-                    f"[{'colour' if 'ILb1E' in m.group(1) else 'depth'}]")
+            colour = "colour" if m.group(2) == "1" else "depth"
+            if m.group(1) == "rows_kernel":
+                name = f"rows[{colour}]"
+            else:
+                vec = re.match(r"Li\d+ELi\d+ELb(\d)E", m.group(3))
+                name = f"general[{colour}{'' if vec and vec.group(1) == '1' else ',words'}]"
             table[name] = [0, 0]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -997,80 +1035,121 @@ def ptxas_kernels(log):
     return {k: tuple(v) for k, v in table.items()}
 
 
-def sparse_shapes_main() -> int:
-    """``--sparse-shapes``: ``csrc/sparse_fuse.cu`` built at every launch
-    shape of ``SPARSE_SHAPES`` (``-D CDMI_SPARSE_VX``, ``CDMI_SPARSE_BLOCKS``
-    and the same for the colour instance, ``CDMI_SPARSE_COLOR_*``),
-    each build's row kernel held to the plain versions in bit patterns on
-    the ``fr1`` case, depth only and with colour, and timed by cold device
-    time twice over; the general kernel (a voxel a thread) beside them on
-    the same 8^3 blocks, and the rate such traffic can reach: PyTorch's
-    in-place add over a slab of as many bytes as the case's pools, read and
-    written once (``torch_add``)."""
+def sparse_sweep(entries, grid, batch, params, label):
+    """Every C entry of ``entries`` (``{shape: entry}``) on ``batch`` into
+    ``grid``'s pools, depth only and with colour: held to the plain
+    versions in bit patterns, then timed by cold device time twice over,
+    beside PyTorch's in-place add over a slab of as many bytes as the
+    pools, read and written once (``torch_add``, what the traffic can
+    reach). Prints one line a mode."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels import sparse_cuda as sc
+    from cudadepthmapintegration_torch.kernels._build import check
+
+    args = (batch.slots, batch.origins, batch.proj_rows, grid.axes, batch.depth)
+    voxels = int(batch.slots.shape[0]) * int(np.prod(grid.block_shape))
+    for colour in (False, True):
+        names = ("pool", "color_pool", "weight_pool") if colour else ("pool",)
+        plain = {k: getattr(grid, k).clone() for k in names}
+        sc.sparse_fuse_torch(plain["pool"], *args, params)
+        if colour:
+            sc.sparse_accumulate_color_torch(plain["color_pool"], plain["weight_pool"], *args,
+                                             batch.rgb, grid.color_band)
+        ms = {name: [] for name in entries}
+        for _ in range(2):
+            for name, entry in entries.items():
+                pools = {k: getattr(grid, k).clone() for k in names}
+                extra = {}
+                if colour:
+                    extra = dict(color_pool=pools["color_pool"],
+                                 weight_pool=pools["weight_pool"], rgb=batch.rgb,
+                                 band=grid.color_band)
+                c_args = sc.launch_args(pools["pool"], *args, params, **extra)
+
+                def run(entry=entry, c_args=c_args, name=name):
+                    check(entry(*c_args), name)
+
+                run()
+                torch.cuda.synchronize()
+                if not all(same_bits(pools[k], plain[k]) for k in names):
+                    raise AssertionError(f"sparse shape {name} differs from the plain version "
+                                         f"({label})")
+                ms[name].append(device_ms(run, REPS, SPARSE_KERNEL_NAME, cold=True))
+                del pools
+        slab = torch.zeros(voxels * (5 if colour else 1), device="cuda")
+        add = [device_ms(lambda: slab.add_(0.0), REPS, "add", cold=True) for _ in range(2)]
+        del slab, plain
+        bound = sparse_bound(voxels, colour, int(batch.slots.shape[0]), batch.depth.shape, 1.0)
+        emit(dict(phase="sparse_shapes", case=label, mode="colour" if colour else "depth",
+                  block_shape=list(grid.block_shape), blocks=int(batch.slots.shape[0]),
+                  equal_bits=True, cold_device_ms=ms, torch_add_ms=add,
+                  bound_ms=bound["bound_ms"], fastest=sorted(ms, key=lambda k: min(ms[k]))[:5]))
+
+
+def sparse_shapes_main(which="both") -> int:
+    """``--sparse-shapes [rows|general]``: ``csrc/sparse_fuse.cu`` built at
+    every launch shape of a kernel, each build held to the plain versions in
+    bit patterns, depth only and with colour, and timed by cold device time
+    twice over (:func:`sparse_sweep`). The row kernel at every shape of
+    ``SPARSE_SHAPES`` (``-D CDMI_SPARSE_VX``, ``CDMI_SPARSE_BLOCKS`` and the
+    same for the colour instance, ``CDMI_SPARSE_COLOR_*``) on the ``fr1``
+    case; the general kernel at every shape of ``SPARSE_GEN_SHAPES``
+    (``CDMI_SPARSE_GEN_VX``, ``_THREADS``, ``_COLOR_VX``, ``_COLOR_THREADS``)
+    on the same frame into (4, 6, 5) blocks. The row sweep sets the general
+    kernel at the library's shape beside the row kernel on the 8^3 blocks.
+    A row shape that spills fails the sweep; a general shape that spills is
+    reported and timed."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    from cudadepthmapintegration_torch.kernels import sparse_cuda as sc
-    from cudadepthmapintegration_torch.kernels._build import check
-
     nvidia_smi()
     params = sparse_params()
     views = sparse_views()
-    grid = sparse_case_grid(params, views)
-    batch = grid.frame_batch(views[3])
-    args = (batch.slots, batch.origins, batch.proj_rows, grid.axes, batch.depth)
-    shapes = {f"vx{vx}_b{nb}": {"CDMI_SPARSE_VX": vx, "CDMI_SPARSE_BLOCKS": nb,
-                                "CDMI_SPARSE_COLOR_VX": vx, "CDMI_SPARSE_COLOR_BLOCKS": nb}
-              for vx, nb in SPARSE_SHAPES}
+    shapes = {}
+    if which in ("both", "rows"):
+        shapes.update({f"vx{vx}_b{nb}": {"CDMI_SPARSE_VX": vx, "CDMI_SPARSE_BLOCKS": nb,
+                                         "CDMI_SPARSE_COLOR_VX": vx, "CDMI_SPARSE_COLOR_BLOCKS": nb}
+                       for vx, nb in SPARSE_SHAPES})
+    if which in ("both", "general"):
+        shapes.update({f"gen_vx{vx}_t{t}": {"CDMI_SPARSE_GEN_VX": vx, "CDMI_SPARSE_GEN_THREADS": t,
+                                            "CDMI_SPARSE_GEN_COLOR_VX": vx,
+                                            "CDMI_SPARSE_GEN_COLOR_THREADS": t}
+                       for vx, t in SPARSE_GEN_SHAPES})
+    if not shapes:
+        raise AssertionError(f"--sparse-shapes takes rows or general, not {which}")
     with tempfile.TemporaryDirectory(prefix="cdmi_shapes_") as tmp:
         t0 = time.perf_counter()
         built = build_shapes("sparse_fuse.cu", shapes, tmp)
         tables = {name: ptxas_kernels(log) for name, (_, log) in built.items()}
-        spill = {name: sum(s for _, s in t.values()) for name, t in tables.items()}
+        # A shape's spills, by instance, in the kernel it sets (a row shape
+        # builds the general kernel at the library's shape, and the other
+        # way round).
+        spill = {name: {k: s for k, (_, s) in t.items()
+                        if s and k.startswith("general") == name.startswith("gen_")}
+                 for name, t in tables.items()}
         emit(dict(phase="sparse_shapes_build", seconds=time.perf_counter() - t0,
                   library_shape=library_shape("sparse_fuse.cu"),
                   registers={name: {k: r for k, (r, _) in t.items()} for name, t in tables.items()},
                   spill_bytes=spill))
-        if any(spill.values()):
-            raise AssertionError(f"ptxas spilled in a sparse shape ({spill})")
-        entries = {name: lib.cdmi_sparse_fuse_rows for name, (lib, _) in built.items()}
-        entries["general"] = next(iter(built.values()))[0].cdmi_sparse_fuse
-        for colour in (False, True):
-            names = ("pool", "color_pool", "weight_pool") if colour else ("pool",)
-            plain = {k: getattr(grid, k).clone() for k in names}
-            sc.sparse_fuse_torch(plain["pool"], *args, params)
-            if colour:
-                sc.sparse_accumulate_color_torch(plain["color_pool"], plain["weight_pool"], *args,
-                                                 batch.rgb, grid.color_band)
-            ms = {name: [] for name in entries}
-            for _ in range(2):
-                for name, entry in entries.items():
-                    pools = {k: getattr(grid, k).clone() for k in names}
-                    extra = {}
-                    if colour:
-                        extra = dict(color_pool=pools["color_pool"],
-                                     weight_pool=pools["weight_pool"], rgb=batch.rgb,
-                                     band=grid.color_band)
-                    c_args = sc.launch_args(pools["pool"], *args, params, **extra)
-
-                    def run(entry=entry, c_args=c_args, name=name):
-                        check(entry(*c_args), name)
-
-                    run()
-                    torch.cuda.synchronize()
-                    if not all(same_bits(pools[k], plain[k]) for k in names):
-                        raise AssertionError(f"sparse shape {name} differs from the plain version")
-                    ms[name].append(device_ms(run, REPS, SPARSE_KERNEL_NAME, cold=True))
-                    del pools
-            voxels = int(batch.slots.shape[0]) * 512
-            slab = torch.zeros(voxels * (5 if colour else 1), device="cuda")
-            add = [device_ms(lambda: slab.add_(0.0), REPS, "add", cold=True) for _ in range(2)]
-            del slab
-            emit(dict(phase="sparse_shapes", case="colour" if colour else "depth",
-                      blocks=int(batch.slots.shape[0]), equal_bits=True, cold_device_ms=ms,
-                      torch_add_ms=add, fastest=sorted(ms, key=lambda k: min(ms[k]))[:5]))
+        rows = {n: lib.cdmi_sparse_fuse_rows for n, (lib, _) in built.items()
+                if not n.startswith("gen_")}
+        if any(spill[n] for n in rows):
+            raise AssertionError(f"ptxas spilled in a sparse row shape ({spill})")
+        if rows:
+            # The general kernel at the library's shape on the same 8^3 blocks.
+            rows["general"] = built[next(iter(rows))][0].cdmi_sparse_fuse
+            grid = sparse_case_grid(params, views)
+            sparse_sweep(rows, grid, grid.frame_batch(views[3]), params, "fr1")
+            del grid
+            torch.cuda.empty_cache()
+        general = {n: lib.cdmi_sparse_fuse for n, (lib, _) in built.items()
+                   if n.startswith("gen_")}
+        if which != "rows":
+            grid = sparse_case_grid(params, views, block_shape=(4, 6, 5))
+            sparse_sweep(general, grid, grid.frame_batch(views[3]), params, "block_4x6x5")
     return 0
 
 
@@ -2389,7 +2468,7 @@ def main() -> int:
                cold_device_ms=sparse[cases[0]]["colour"]["cold_device_ms"],
                cold_device_share=sparse[cases[0]]["colour"]["cold_device_share"])
           for name, cases in (("sparse_fuse", ("fr1", "neg_zero", "straddle")),
-                              ("sparse_fuse[general]", ("block_4x6x5",)))),
+                              ("sparse_fuse[general]", GENERAL_CASES))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -2411,10 +2490,10 @@ if __name__ == "__main__":
         sys.exit(sparse_cases_main())
     if sys.argv[1:2] == ["--trace-metrics"] and len(sys.argv) == 3:
         sys.exit(trace_metrics_main(sys.argv[2]))
-    if sys.argv[1:] == ["--sparse-shapes"]:
-        sys.exit(sparse_shapes_main())
-    if sys.argv[1:2] == ["--sparse-time"] and len(sys.argv) == 3:
-        sys.exit(sparse_time_main(sys.argv[2]))
-    if sys.argv[1:2] == ["--sparse-ab"] and len(sys.argv) == 3:
-        sys.exit(ab_main("sparse", sys.argv[2]))
+    if sys.argv[1:2] == ["--sparse-shapes"] and len(sys.argv) in (2, 3):
+        sys.exit(sparse_shapes_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--sparse-time"] and len(sys.argv) in (3, 4):
+        sys.exit(sparse_time_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--sparse-ab"] and len(sys.argv) in (3, 4):
+        sys.exit(ab_main("sparse", *sys.argv[2:]))
     sys.exit(main())

@@ -1,7 +1,7 @@
 // Sparse TSDF update of one RGB-D frame, the pixel gather fused in. Two
 // kernels, chosen by the block shape alone (kernels/sparse_cuda.py,
 // kernel_for): the row kernel for the library's 8^3 blocks, the general
-// kernel (a voxel a thread) for any other shape.
+// kernel (VX consecutive voxels of a block a thread) for any other shape.
 //
 // Replaces: cudadepthmapintegration_tpu/kernels/gather_points.py,
 //   gather_pixels_pallas / _gather_kernel (the windowed point gather), and
@@ -40,10 +40,36 @@
 //     bytes), so that they are in flight during the divisions and the
 //     gather; then the row's VX projections, then its VX depth (and colour)
 //     gathers together, then the updates, stored back as 16-byte vectors.
+//   The general kernel serves every other block shape (4^3, 16^3, (4, 6, 5),
+//   (3, 5, 7), ...). It replaces a kernel of one CTA a block and one thread a
+//   voxel, in which every thread formed its block's four base_r and twelve
+//   products, split its flat index by three runtime integer divisions and
+//   only then loaded its pool words, one at a time: on one fr1 frame into
+//   (4, 6, 5) blocks it reached under half of its byte bound with colour
+//   and under a fifth depth only, and 2^3 or 3^3 blocks left a CTA one warp.
+//   Its design:
+//   * a thread takes VX consecutive voxels of one block in flat (k, j, i)
+//     order, a block ceil(nvox / VX) threads, and a CTA the next THREADS
+//     threads of the call whatever blocks they fall in: every warp is full
+//     but the grid's last, for any shape, and no block is too large for a
+//     CTA;
+//   * as in the row kernel, each block's slot and base_r and the products
+//     P[r,c] * axes[c,n] (one float4 over r, for bz + by + bx offsets) are
+//     formed once a CTA in shared memory; a voxel adds its three float4 in
+//     the plain version's order;
+//   * the thread's block and first voxel (i, j, k) come from three exact
+//     multiply-high divisions by constants formed on the host, and the next
+//     voxels by steps of i, carried into j and k;
+//   * the pool, weight and colour words are loaded before the projections,
+//     as 16-byte vectors where nvox is a multiple of 4 (a block's pool base
+//     slot * nvox * 4 bytes is then a multiple of 16 and its colour base a
+//     multiple of 48), else 8-byte or word loads, in one kernel template.
 //   `python3 chip_smoke.py --sparse-shapes` builds this file once per
-//   (VX, BLOCKS) with -D, holds each build to the plain versions bit for bit
-//   and times it by device time with the L2 flushed; the defaults are the
-//   fastest of its 12 shapes for each instance (PERF.md section 6).
+//   launch shape of each kernel with -D (the row kernel's (VX, BLOCKS) on
+//   the fr1 frame's 8^3 blocks, the general kernel's (VX, THREADS) on the
+//   same frame's (4, 6, 5) blocks), holds each build to the plain versions
+//   bit for bit and times it by device time with the L2 flushed; the
+//   defaults are the fastest of each sweep (PERF.md section 6).
 //
 // Parity with ops/sparse_grid.py (bit for bit with the plain version
 // kernels/sparse_cuda.py, which follows the JAX order of operations):
@@ -51,7 +77,8 @@
 //     + P[r,3], h_r = ((base_r + P[r,2]*az[k]) + P[r,1]*ay[j]) + P[r,0]*ax[i]
 //     (sparse_grid.py:75-87), not the dense kernel's ty + (tx + (tz + tc));
 //     the row kernel forms the row term t_r = (base_r + P[r,2]*az[k]) +
-//     P[r,1]*ay[j] once and h_r = t_r + P[r,0]*ax[i]: the same rounded
+//     P[r,1]*ay[j] once and h_r = t_r + P[r,0]*ax[i], the general kernel
+//     each h_r in full from the products in shared memory: the same rounded
 //     operations in the same order;
 //   * IEEE division, no fused multiply-add, round half away from zero
 //     (common.cuh); bounds tested on the float u, v with h2 >= 0 kept;
@@ -84,6 +111,20 @@
 #ifndef CDMI_SPARSE_COLOR_BLOCKS
 #define CDMI_SPARSE_COLOR_BLOCKS 1
 #endif
+// The general kernel's launch shapes: consecutive voxels a thread, and
+// threads a CTA; for the depth-only instance and for the colour instance.
+#ifndef CDMI_SPARSE_GEN_VX
+#define CDMI_SPARSE_GEN_VX 8
+#endif
+#ifndef CDMI_SPARSE_GEN_THREADS
+#define CDMI_SPARSE_GEN_THREADS 128
+#endif
+#ifndef CDMI_SPARSE_GEN_COLOR_VX
+#define CDMI_SPARSE_GEN_COLOR_VX 2
+#endif
+#ifndef CDMI_SPARSE_GEN_COLOR_THREADS
+#define CDMI_SPARSE_GEN_COLOR_THREADS 256
+#endif
 
 namespace {
 
@@ -92,12 +133,14 @@ using cdmi::round_half_away;
 
 constexpr int kB = 8;  // the row kernel's blocks are kB^3 voxels
 constexpr int kBlockVoxels = kB * kB * kB;
+// The general kernel keeps bz + by + bx products in shared memory: 32 KB.
+constexpr int kMaxEdgeSum = 2048;
 
 
-// N consecutive floats at p, as 16-byte vectors where N allows, else 8-byte
-// ones, else words; p is aligned to the vector.
+// N consecutive floats at p into v[0..N), as 16-byte vectors where N
+// allows, else 8-byte ones, else words; p is aligned to the vector.
 template <int N>
-__device__ __forceinline__ void load_floats(const float* p, float (&v)[N]) {
+__device__ __forceinline__ void load_floats(const float* p, float* v) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < N / 4; ++q) {
@@ -121,7 +164,7 @@ __device__ __forceinline__ void load_floats(const float* p, float (&v)[N]) {
 }
 
 template <int N>
-__device__ __forceinline__ void store_floats(float* p, const float (&v)[N]) {
+__device__ __forceinline__ void store_floats(float* p, const float* v) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < N / 4; ++q) {
@@ -257,86 +300,200 @@ __global__ void __launch_bounds__(kBlocks * kB * kB * (kB / VX)) sparse_fuse_row
   }
 }
 
-// The general kernel: one CTA a sparse block of any shape, one thread a
-// voxel; every thread forms the block's terms itself.
-template <bool kColor>
-__global__ void sparse_fuse_kernel(
+// Exact unsigned division by a divisor fixed at launch, for every 32-bit n:
+// n / d is the high half of n * m with m = floor((2^64 - 1) / d) + 1, formed
+// once on the host (m * d = 2^64 + e with 0 <= e <= d, so the error term
+// n * e / 2^64 stays below 1 / d). d == 1 is taken apart: its m overflows.
+struct DivBy {
+  unsigned long long m;
+  unsigned d;
+};
+
+DivBy divider(unsigned d) { return {d > 1 ? ~0ULL / d + 1 : 0ULL, d}; }
+
+__device__ __forceinline__ unsigned divide(unsigned n, DivBy q) {
+  return q.d == 1 ? n : (unsigned)__umul64hi((unsigned long long)n, q.m);
+}
+
+// Words a vector of the general kernel moves when a thread's VX voxels come
+// in whole vectors: 4 (16 bytes) where VX allows, else 2, else 1.
+__host__ __device__ constexpr int chunk_words(int vx) {
+  return vx % 4 == 0 ? 4 : (vx % 2 == 0 ? 2 : 1);
+}
+
+// The general kernel: blocks of any shape. A thread takes VX consecutive
+// voxels of one block in its flat (k, j, i) order; a block has per_block.d =
+// ceil(nvox / VX) threads, and a CTA takes the next kThreads threads of the
+// call, whatever blocks they fall in. With kVec (nvox a multiple of
+// chunk_words(VX), pools 16-byte aligned) the words move as vectors of that
+// many; else a word at a time.
+template <bool kColor, int VX, int kThreads, bool kVec>
+__global__ void __launch_bounds__(kThreads) sparse_fuse_kernel(
     float* __restrict__ pool,             // (cap, bz, by, bx), in place
     const int* __restrict__ slots,        // (B,) unique pool slots
     const float* __restrict__ origins,    // (B, 3) block origins, xyz
     const float* __restrict__ proj,       // (4, 4) rows 0..2 of P + z row
     const float* __restrict__ axes,       // (3, bmax) voxel-centre offsets
-    const float* __restrict__ depth,      // (h, w)
+    const float* __restrict__ depth,      // (h, w), h * w < 2^31
     const uint8_t* __restrict__ rgb,      // (h, w, 3), kColor only
     float* __restrict__ color_pool,       // (cap, bz, by, bx, 3), kColor
     float* __restrict__ weight_pool,      // (cap, bz, by, bx), kColor
-    int bz, int by, int bx, int bmax, int h, int w, float thick, float rho,
-    float delta, float rho_over_thick, float neg_eta_rho, float band) {
-  const int b = blockIdx.x;
-  const int nvox = bz * by * bx;
-  const int64_t slot_base = (int64_t)__ldg(slots + b) * nvox;
-  const float o[3] = {__ldg(origins + 3 * b + 0), __ldg(origins + 3 * b + 1),
-                      __ldg(origins + 3 * b + 2)};
-  float p[4][4];
-  float base[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) p[r][c] = __ldg(proj + 4 * r + c);
-    base[r] = __fadd_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(p[r][0], o[0]), __fmul_rn(p[r][1], o[1])),
-                  __fmul_rn(p[r][2], o[2])),
-        p[r][3]);
+    int n_threads, int nvox, int bz, int by, int bx, int bmax, DivBy per_block, DivBy div_bx,
+    DivBy div_by, int h, int w, float thick, float rho, float delta, float rho_over_thick,
+    float neg_eta_rho, float band) {
+  static_assert(VX > 0 && kThreads % 32 == 0 && kThreads <= 512, "launch shape");
+  constexpr int C = kVec ? chunk_words(VX) : 1;
+  // Once a CTA: the products P[r,c] * axes[c,n] as one float4 over r, for
+  // x (n < bx), then y, then z (dynamic, (bx + by + bz) float4); and the
+  // slot and base_r of each block the CTA's threads fall in (at most
+  // kThreads blocks, one when a block has kThreads threads or more).
+  extern __shared__ float4 s_prod[];
+  __shared__ float4 s_base[kThreads];
+  __shared__ int s_slot[kThreads];
+  const int t = threadIdx.x;
+  const unsigned g0 = blockIdx.x * kThreads;
+  const unsigned b_lo = divide(g0, per_block);
+  const unsigned g_end = min(g0 + kThreads, (unsigned)n_threads);
+  const int nb = (int)(divide(g_end - 1, per_block) - b_lo) + 1;
+  for (int q = t; q < bx + by + bz; q += kThreads) {
+    const int c = q < bx ? 0 : (q < bx + by ? 1 : 2);
+    const float a = __ldg(axes + c * bmax + q - (c == 0 ? 0 : (c == 1 ? bx : bx + by)));
+    s_prod[q] = make_float4(__fmul_rn(__ldg(proj + c), a), __fmul_rn(__ldg(proj + 4 + c), a),
+                            __fmul_rn(__ldg(proj + 8 + c), a), __fmul_rn(__ldg(proj + 12 + c), a));
   }
-  const float wf = (float)w;
-  const float hf = (float)h;
-
-  for (int t = threadIdx.x; t < nvox; t += blockDim.x) {
-    const int i = t % bx;
-    const int j = (t / bx) % by;
-    const int k = t / (bx * by);
-    const float ax = __ldg(axes + i);
-    const float ay = __ldg(axes + bmax + j);
-    const float az = __ldg(axes + 2 * bmax + k);
-    float hom[4];
+  for (int q = t; q < nb; q += kThreads) {
+    const float* o = origins + 3 * (int64_t)(b_lo + q);
+    const float ox = __ldg(o), oy = __ldg(o + 1), oz = __ldg(o + 2);
+    float base[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      hom[r] = __fadd_rn(__fadd_rn(__fadd_rn(base[r], __fmul_rn(p[r][2], az)),
-                                   __fmul_rn(p[r][1], ay)),
-                         __fmul_rn(p[r][0], ax));
+      const float* p = proj + 4 * r;
+      base[r] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__ldg(p), ox), __fmul_rn(__ldg(p + 1), oy)),
+                                    __fmul_rn(__ldg(p + 2), oz)),
+                          __ldg(p + 3));
     }
-    const float u = round_half_away(__fdiv_rn(hom[0], hom[2]));
-    const float v = round_half_away(__fdiv_rn(hom[1], hom[2]));
-    const bool valid =
-        hom[2] >= 0.0f && u >= 0.0f && v >= 0.0f && u < wf && v < hf;
-    int64_t pix = 0;
-    float d = -1.0f;
-    if (valid) {
-      pix = (int64_t)(int)v * w + (int)u;
-      d = __ldg(depth + pix);
-    }
-    const bool near = valid && d != -1.0f;
-    const float diff = __fsub_rn(hom[3], d);
-    const float contrib =
-        near ? ray_potential(diff, thick, rho, delta, rho_over_thick,
-                             neg_eta_rho)
-             : 0.0f;
-    const int64_t vox = slot_base + t;
-    pool[vox] = __fadd_rn(pool[vox], contrib);
-    if (kColor) {
-      float wadd = 0.0f;
-      float c[3] = {0.0f, 0.0f, 0.0f};
-      if (near) {
-        wadd = fmaxf(0.0f, __fsub_rn(1.0f, __fdiv_rn(fabsf(diff), band)));
+    s_base[q] = make_float4(base[0], base[1], base[2], base[3]);
+    s_slot[q] = __ldg(slots + b_lo + q);
+  }
+  __syncthreads();
+
+  const unsigned g = g0 + t;
+  if (g >= (unsigned)n_threads) return;
+  const unsigned b = divide(g, per_block);
+  const int f0 = (int)(g - b * per_block.d) * VX;  // the thread's first voxel
+  const int lb = (int)(b - b_lo);
+  const int64_t vox = (int64_t)s_slot[lb] * nvox + f0;
+
+  // The thread's pool words first, so that they arrive during the
+  // arithmetic. A chunk lies wholly in the block or wholly past its end.
+  float acc[VX] = {}, wsum[VX] = {}, csum[3 * VX] = {};
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) c[ch] = (float)__ldg(rgb + 3 * pix + ch);
+  for (int q = 0; q < VX; q += C) {
+    if (f0 + q < nvox) {
+      load_floats<C>(pool + vox + q, acc + q);
+      if constexpr (kColor) {
+        load_floats<C>(weight_pool + vox + q, wsum + q);
+        load_floats<3 * C>(color_pool + 3 * (vox + q), csum + 3 * q);
       }
-      float* cp = color_pool + 3 * vox;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) cp[ch] = __fadd_rn(cp[ch], __fmul_rn(c[ch], wadd));
-      weight_pool[vox] = __fadd_rn(weight_pool[vox], wadd);
     }
   }
+
+  // The first voxel's (i, j, k) by two divisions, the next ones by steps.
+  const unsigned kj = divide(f0, div_bx);
+  int i = f0 - (int)kj * bx;
+  int k = (int)divide(kj, div_by);
+  int j = (int)kj - k * by;
+  const float4 base = s_base[lb];
+  const float wf = (float)w;
+  const float hf = (float)h;
+  float zc[VX], d[VX];
+  int pix[VX];
+  bool valid[VX];
+#pragma unroll
+  for (int v = 0; v < VX; ++v) {
+    const bool in = f0 + v < nvox;
+    const float4 pz = s_prod[bx + by + (in ? k : 0)];
+    const float4 py = s_prod[bx + (in ? j : 0)];
+    const float4 px = s_prod[in ? i : 0];
+    const float h0 = __fadd_rn(__fadd_rn(__fadd_rn(base.x, pz.x), py.x), px.x);
+    const float h1 = __fadd_rn(__fadd_rn(__fadd_rn(base.y, pz.y), py.y), px.y);
+    const float h2 = __fadd_rn(__fadd_rn(__fadd_rn(base.z, pz.z), py.z), px.z);
+    zc[v] = __fadd_rn(__fadd_rn(__fadd_rn(base.w, pz.w), py.w), px.w);
+    const float u = round_half_away(__fdiv_rn(h0, h2));
+    const float vv = round_half_away(__fdiv_rn(h1, h2));
+    valid[v] = in && h2 >= 0.0f && u >= 0.0f && vv >= 0.0f && u < wf && vv < hf;
+    pix[v] = valid[v] ? (int)vv * w + (int)u : 0;
+    if (++i == bx) {
+      i = 0;
+      if (++j == by) {
+        j = 0;
+        ++k;
+      }
+    }
+  }
+  // The thread's gathers, independent of each other, in flight together.
+  float c[3 * VX];
+#pragma unroll
+  for (int v = 0; v < VX; ++v) {
+    d[v] = valid[v] ? __ldg(depth + pix[v]) : -1.0f;
+    if constexpr (kColor) {
+      const uint8_t* px = rgb + 3 * (int64_t)pix[v];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) c[3 * v + ch] = valid[v] ? (float)__ldg(px + ch) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < VX; ++v) {
+    const bool near = valid[v] && d[v] != -1.0f;
+    const float diff = __fsub_rn(zc[v], d[v]);
+    const float contrib =
+        near ? ray_potential(diff, thick, rho, delta, rho_over_thick, neg_eta_rho) : 0.0f;
+    acc[v] = __fadd_rn(acc[v], contrib);
+    if constexpr (kColor) {
+      const float wadd =
+          near ? fmaxf(0.0f, __fsub_rn(1.0f, __fdiv_rn(fabsf(diff), band))) : 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        csum[3 * v + ch] = __fadd_rn(csum[3 * v + ch], __fmul_rn(c[3 * v + ch], wadd));
+      }
+      wsum[v] = __fadd_rn(wsum[v], wadd);
+    }
+  }
+  // Every word of the block is stored: an invalid sample's +0.0 turns -0.0
+  // into +0.0.
+#pragma unroll
+  for (int q = 0; q < VX; q += C) {
+    if (f0 + q < nvox) {
+      store_floats<C>(pool + vox + q, acc + q);
+      if constexpr (kColor) {
+        store_floats<C>(weight_pool + vox + q, wsum + q);
+        store_floats<3 * C>(color_pool + 3 * (vox + q), csum + 3 * q);
+      }
+    }
+  }
+}
+
+// The general kernel's launch: the vector instance where the block's
+// voxels come in whole chunks, else the word instance.
+template <bool kColor, int VX, int kThreads>
+void launch_general(float* pool, const int* slots, const float* origins, const float* proj,
+                    const float* axes, const float* depth, const uint8_t* rgb,
+                    float* color_pool, float* weight_pool, int n_blocks, int bz, int by,
+                    int bx, int bmax, int h, int w, float thick, float rho, float delta,
+                    float rho_over_thick, float neg_eta_rho, float band, cudaStream_t s) {
+  const int nvox = bz * by * bx;
+  const int per_block = (nvox + VX - 1) / VX;
+  const int n_threads = n_blocks * per_block;
+  const int grid = (n_threads + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(float4) * (bx + by + bz);
+  auto kernel = sparse_fuse_kernel<kColor, VX, kThreads, false>;
+  if constexpr (chunk_words(VX) > 1) {
+    if (nvox % chunk_words(VX) == 0) kernel = sparse_fuse_kernel<kColor, VX, kThreads, true>;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(
+      pool, slots, origins, proj, axes, depth, rgb, color_pool, weight_pool, n_threads, nvox,
+      bz, by, bx, bmax, divider(per_block), divider(bx), divider(by), h, w, thick, rho, delta,
+      rho_over_thick, neg_eta_rho, band);
 }
 
 template <bool kColor, int VX, int kBlocks>
@@ -388,7 +545,10 @@ extern "C" int cdmi_sparse_fuse_rows(
   return (int)cudaGetLastError();
 }
 
-// The general kernel: blocks of any shape.
+// The general kernel: blocks of any shape whose edges sum to at most
+// kMaxEdgeSum (the products in shared memory), bmax >= every edge, fewer than
+// 2^31 voxels a call (else cudaErrorInvalidValue), pools aligned to 16 bytes
+// (else cudaErrorMisalignedAddress).
 extern "C" int cdmi_sparse_fuse(
     void* pool, const void* slots, const void* origins, const void* proj,
     const void* axes, const void* depth, const void* rgb, void* color_pool,
@@ -397,23 +557,26 @@ extern "C" int cdmi_sparse_fuse(
     float neg_eta_rho, float band, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int nvox = bz * by * bx;
-  if (n_blocks > 0 && nvox > 0) {
-    const int threads = nvox < 512 ? ((nvox + 31) / 32) * 32 : 512;
+  if (bz < 1 || by < 1 || bx < 1 || bmax < bz || bmax < by || bmax < bx ||
+      bz + by + bx > kMaxEdgeSum || (int64_t)n_blocks * bz * by * bx >= (int64_t(1) << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (((uintptr_t)pool | (uintptr_t)color_pool | (uintptr_t)weight_pool) & 15) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if (n_blocks > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (rgb != nullptr) {
-      sparse_fuse_kernel<true><<<n_blocks, threads, 0, s>>>(
-          (float*)pool, (const int*)slots, (const float*)origins,
-          (const float*)proj, (const float*)axes, (const float*)depth,
-          (const uint8_t*)rgb, (float*)color_pool, (float*)weight_pool, bz,
-          by, bx, bmax, h, w, thick, rho, delta, rho_over_thick, neg_eta_rho,
-          band);
+      launch_general<true, CDMI_SPARSE_GEN_COLOR_VX, CDMI_SPARSE_GEN_COLOR_THREADS>(
+          (float*)pool, (const int*)slots, (const float*)origins, (const float*)proj,
+          (const float*)axes, (const float*)depth, (const uint8_t*)rgb, (float*)color_pool,
+          (float*)weight_pool, n_blocks, bz, by, bx, bmax, h, w, thick, rho, delta,
+          rho_over_thick, neg_eta_rho, band, s);
     } else {
-      sparse_fuse_kernel<false><<<n_blocks, threads, 0, s>>>(
-          (float*)pool, (const int*)slots, (const float*)origins,
-          (const float*)proj, (const float*)axes, (const float*)depth,
-          nullptr, nullptr, nullptr, bz, by, bx, bmax, h, w, thick, rho,
-          delta, rho_over_thick, neg_eta_rho, band);
+      launch_general<false, CDMI_SPARSE_GEN_VX, CDMI_SPARSE_GEN_THREADS>(
+          (float*)pool, (const int*)slots, (const float*)origins, (const float*)proj,
+          (const float*)axes, (const float*)depth, nullptr, nullptr, nullptr, n_blocks, bz, by,
+          bx, bmax, h, w, thick, rho, delta, rho_over_thick, neg_eta_rho, band, s);
     }
   }
   return (int)cudaGetLastError();

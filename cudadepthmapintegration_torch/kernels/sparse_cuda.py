@@ -15,8 +15,10 @@ read pixels through :func:`gather_pixels_torch` (the counterpart of the
 Pallas gather itself); CUDA tensors launch one of the two kernels or raise.
 Nothing falls back from one to another. :func:`kernel_for` chooses the
 kernel by the block shape alone: the row kernel (an x-row of a block a
-thread, 16-byte pool traffic) for the library's 8^3 blocks, the general
-kernel (a voxel a thread) for any other shape.
+thread) for the library's 8^3 blocks, the general kernel (a few
+consecutive voxels of a block a thread) for any other shape. Both move the
+pools' words as 16-byte vectors where the shape allows, so both take pools
+aligned to 16 bytes.
 
 Both follow the JAX order of operations, so on the same inputs they agree
 bit for bit:
@@ -53,6 +55,9 @@ __all__ = [
 # The block shape the row kernel takes: an x-row of a block is 8 words of
 # pool (two 16-byte vectors) and 24 of colour (six).
 ROW_BLOCK = (8, 8, 8)
+# The general kernel keeps bz + by + bx products in shared memory
+# (kMaxEdgeSum in csrc/sparse_fuse.cu).
+MAX_EDGE_SUM = 2048
 
 # Kernel launches by sparse_fuse since the counters were last set to 0:
 # those of either kernel, and those of the row kernel alone.
@@ -170,9 +175,10 @@ def sparse_accumulate_color_torch(
 def _check_args(pool, slots, origins, proj_rows, axes, depth, color, for_kernel=False):
     """Shapes and devices of :func:`sparse_fuse`'s arguments; ``for_kernel``
     adds what the kernels take: float32 (``slots`` int32, ``rgb`` uint8),
-    contiguous, a map of fewer than 2^31 pixels, and for the row kernel
-    pools aligned to 16 bytes. Returns the tensors by name, ``pool`` among
-    them."""
+    contiguous, a map of fewer than 2^31 pixels, pools aligned to 16 bytes,
+    and for the general kernel blocks whose edges sum to at most
+    :data:`MAX_EDGE_SUM` and fewer than 2^31 voxels a call. Returns the
+    tensors by name, ``pool`` among them."""
     if pool.dim() != 4:
         raise ValueError(f"pool must be (capacity, bz, by, bx), got {tuple(pool.shape)}")
     bz, by, bx = _block_shape(pool)
@@ -213,10 +219,16 @@ def _check_args(pool, slots, origins, proj_rows, axes, depth, color, for_kernel=
     if depth.numel() >= 1 << 31:
         raise ValueError(f"the sparse fuse kernel takes maps of fewer than 2^31 pixels, "
                          f"got {tuple(depth.shape)}")
-    if kernel_for((bz, by, bx)) == "rows":
-        for name in ("pool", "color_pool", "weight_pool"):
-            if name in tensors and tensors[name].data_ptr() % 16:
-                raise ValueError(f"the row kernel needs {name} aligned to 16 bytes")
+    for name in ("pool", "color_pool", "weight_pool"):
+        if name in tensors and tensors[name].data_ptr() % 16:
+            raise ValueError(f"the sparse fuse kernels need {name} aligned to 16 bytes")
+    if kernel_for((bz, by, bx)) == "general":
+        if bz + by + bx > MAX_EDGE_SUM:
+            raise ValueError(f"the general kernel takes blocks whose edges sum to at most "
+                             f"{MAX_EDGE_SUM}, got {(bz, by, bx)}")
+        if n * bz * by * bx >= 1 << 31:
+            raise ValueError(f"the general kernel takes fewer than 2^31 voxels a call, got "
+                             f"{n} blocks of {(bz, by, bx)}")
     return tensors
 
 
@@ -280,8 +292,8 @@ def sparse_fuse(
     CUDA tensors launch the kernel :func:`kernel_for` names once on the
     current stream and count it in :data:`launches` (and the row kernel in
     :data:`rows_launches`); they must be float32 (``slots`` int32, ``rgb``
-    uint8), contiguous and on one device, the pools of the row kernel
-    aligned to 16 bytes, and the slots unique.
+    uint8), contiguous and on one device, the pools aligned to 16 bytes,
+    and the slots unique.
     """
     global launches, rows_launches
     color = None if rgb is None else (color_pool, weight_pool, rgb)
