@@ -39,7 +39,17 @@ process, on synthetic datasets:
 * multi-process fusion: two processes of this script (``--mp-worker``) on
   the one card, joined by ``torch.distributed`` (phase ``multiprocess``);
 * sparse RGB-D fusion: ``fuse_rgbd --onlineColor`` over a 300-frame
-  640x480 sequence with TUM freiburg1 intrinsics orbiting the unit sphere.
+  640x480 sequence with TUM freiburg1 intrinsics orbiting the unit sphere;
+* the capstone (``python -m cudadepthmapintegration_torch.scripts.
+  capstone_1024``) in a process of its own (``--capstone``; phase
+  ``capstone``): 1000 maps of 512x512 rendered on the card and fused into
+  1024^3 cells, the whole volume meshed and coloured against every view,
+  then its ``ckpt`` drill and its ``hd`` mode. 16 slices and 8 windows of
+  the volume are held to the plain version in bit patterns, the windows to
+  the float64 oracle (the share of projected samples whose pixel float32
+  flips stays within the flip budget; the voxels off are reported), one
+  vertex chunk to the plain gather and statistics, and the integrate
+  kernel meets four random scenes of tests/test_fuzz_parity.py.
 
 The integrate kernel is held to its plain version in bit patterns (int32
 view, which tells -0.0 from +0.0), on the odd grid from a volume of -0.0
@@ -68,7 +78,8 @@ script (``--sparse-cases``): late in a long process ``torch.profiler``
 recorded no device time.
 
 Every phase prints one JSON line. The line before the last holds the
-kernels' record (launches counted during each kernel's CLI run only, errors,
+kernels' record (launches counted during each kernel's CLI run only, and
+during the capstone's default mode as ``capstone_launches``, errors,
 bounds and CUDA-event times of one call measured here; the coloration
 records carry the card's own time, ``device_ms``, beside them); the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -205,6 +216,13 @@ TRACE_DIMS = 257
 # Each meshing route on the main path's volume is timed this many times, in
 # turns with the others; the median is kept.
 MESH_REPS = 3
+# The capstone's checks: slices through the sphere's middle held to the plain
+# version, and windows across its surface held to the float64 oracle.
+CAPSTONE_SLAB = 16
+CAPSTONE_WINDOWS = 8
+CAPSTONE_WINDOW = 128
+# Seeds of tests/test_fuzz_parity.py's random scenes that meet the kernel.
+FUZZ_SEEDS = (1, 11, 12, 13)
 
 
 def emit(record: dict) -> None:
@@ -2224,6 +2242,295 @@ class _PlainColoration:
         ops.gather_colors, ops.color_stats = self.saved
 
 
+def fuzz_scene(seed):
+    """``random_scene`` of tests/test_fuzz_parity.py with the port's classes,
+    draw for draw from ``default_rng(seed)``: a random grid of 6-13 cells an
+    axis, 2-4 cameras of random rotation and placement, maps of 130-199 x
+    16-39 random depths with holes, random ray parameters."""
+    from cudadepthmapintegration_torch.core import Camera, DepthMapView, RayPotential, VoxelGrid
+
+    rng = np.random.default_rng(seed)
+    grid = VoxelGrid(dims=tuple(rng.integers(6, 14, 3)), origin=tuple(rng.uniform(-2, 0, 3)),
+                     spacing=tuple(rng.uniform(0.1, 0.4, 3)))
+    views = []
+    h, w = int(rng.integers(16, 40)), int(rng.integers(130, 200))
+    for _ in range(int(rng.integers(2, 5))):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        if np.linalg.det(q) < 0:
+            q[:, 0] *= -1
+        rt = np.eye(4)
+        rt[:3, :3] = q
+        rt[:3, 3] = rng.uniform(-1, 1, 3) + [0, 0, rng.uniform(2, 5)]
+        k = np.array([[rng.uniform(30, 120), 0, w / 2 + rng.uniform(-5, 5)],
+                      [0, rng.uniform(30, 120), h / 2 + rng.uniform(-5, 5)],
+                      [0, 0, 1]])
+        depth = rng.uniform(0.5, 6.0, (h, w))
+        depth[rng.uniform(size=(h, w)) < 0.1] = -1.0
+        views.append(DepthMapView(depth=depth, camera=Camera(k=k, rt=rt)))
+    thick, rho, eta = (float(rng.uniform(0.02, 0.3)), float(rng.uniform(0.2, 1.5)),
+                       float(rng.uniform(0.0, 1.0)))
+    params = RayPotential(thick=thick, rho=rho, eta=eta,
+                          delta=thick * float(rng.uniform(1.0, 4.0)))
+    return grid, views, params
+
+
+def fuzz_cases():
+    """The integrate kernel against its plain version on ``FUZZ_SEEDS``'
+    random scenes, in int32 bit patterns."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels.integrate_cuda import (
+        integrate_views,
+        integrate_views_torch,
+    )
+    from cudadepthmapintegration_torch.ops.integrate import projection_tables
+
+    cases = []
+    for seed in FUZZ_SEEDS:
+        grid, views, params = fuzz_scene(seed)
+        t = projection_tables(grid, views, np.float32)
+        depths = np.stack([v.depth for v in views]).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (t.tx, t.ty, t.tz, t.tc, depths)]
+        kernel = integrate_views(torch.zeros(grid.volume_shape, device="cuda"), *args, params)
+        plain = integrate_views_torch(torch.zeros_like(kernel), *args, params)
+        cases.append(dict(seed=seed, cells=list(grid.volume_shape), views=len(views),
+                          map=list(depths.shape[1:]), equal_bits=same_bits(kernel, plain),
+                          max_abs_err=float((kernel - plain).abs().max()),
+                          nonzero=int((kernel != 0).sum())))
+    return cases
+
+
+def capstone_slab(res, k0, n):
+    """Slices ``k0 .. k0+n`` of the capstone's volume against the plain
+    version on the card over every map, in int32 bit patterns: the plain
+    version runs on a volume of ``n`` slices with the ``tz`` table sliced, so
+    every table value is the full grid's."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels.integrate_cuda import integrate_views_torch
+
+    tx, ty, tz, tc = res.tables
+    t0 = time.perf_counter()
+    plain = integrate_views_torch(
+        torch.zeros((n,) + tuple(res.volume.shape[1:]), device=res.volume.device),
+        tx, ty, tz[:, :, k0:k0 + n], tc, res.depths, res.scene.params)
+    torch.cuda.synchronize()
+    kernel = res.volume[k0:k0 + n]
+    return dict(k0=k0, slices=n, equal_bits=same_bits(kernel, plain),
+                max_abs_err=float((kernel - plain).abs().max()),
+                plain_s=time.perf_counter() - t0)
+
+
+def capstone_oracle(res, windows, size):
+    """The capstone's volume on ``windows`` (``surface_windows``) against
+    the plain version on the card (bit for bit, the ``tx``/``ty``/``tz``
+    tables sliced) and against the float64 oracle on the host, which also
+    counts the samples whose pixel the float32 projection flips."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels.integrate_cuda import integrate_views_torch
+    from cudadepthmapintegration_torch.scripts.capstone_1024 import sampled_oracle
+
+    tx, ty, tz, tc = res.tables
+    fused, plain_equal = [], True
+    for k, j0, i0 in windows:
+        win = res.volume[k:k + 1, j0:j0 + size, i0:i0 + size]
+        plain = integrate_views_torch(
+            torch.zeros_like(win), tx[:, :, i0:i0 + size], ty[:, :, j0:j0 + size],
+            tz[:, :, k:k + 1], tc, res.depths, res.scene.params)
+        plain_equal &= same_bits(win.contiguous(), plain)
+        fused.append(win[0].cpu().numpy())
+    t0 = time.perf_counter()
+    depths = res.depths.cpu().numpy()  # the maps cross to the host once
+    tables = [t.cpu().numpy() for t in res.tables]
+    rec = sampled_oracle(res.scene, tables, depths, fused, windows)
+    return dict(rec, window=[size, size], plain_equal_bits=plain_equal,
+                oracle_s=time.perf_counter() - t0)
+
+
+def capstone_chunk(res, start):
+    """One 65,536-vertex chunk of the capstone's mesh against every view: the
+    gather kernel in the main path's view batches of 64 against the plain
+    gather (word for word), the statistics kernel against
+    ``color_stats_torch`` (byte for byte), and both against the colour
+    arrays the run produced; CUDA-event ms of each, kernel and plain, and
+    the bounds of ``coloration_times``."""
+    import torch
+
+    from cudadepthmapintegration_torch.kernels.coloration_cuda import (
+        color_stats,
+        color_stats_torch,
+        gather_colors,
+        gather_colors_torch,
+        split_stats,
+        stage_texels,
+    )
+    from cudadepthmapintegration_torch.ops.coloration import POINT_CHUNK
+
+    cams, dev = res.scene.cameras, res.colors.device
+    n_views = len(cams)
+    pts = torch.from_numpy(np.ascontiguousarray(
+        res.mesh.points[start:start + POINT_CHUNK], np.float32)).to(dev)
+    proj = torch.from_numpy(np.stack([(c.k4 @ c.rt)[:3, :] for c in cams])
+                            .astype(np.float32)).to(dev)
+    texels = stage_texels(res.colors)
+    words = torch.empty((n_views, pts.shape[0]), dtype=torch.int32, device=dev)
+
+    def gather():
+        for vs in range(0, n_views, 64):
+            gather_colors(pts, proj[vs:vs + 64], texels[vs:vs + 64], out=words, view_offset=vs)
+
+    gather()
+    plain = gather_colors_torch(pts, proj, texels)
+    stats = color_stats(words)
+    plain_stats = color_stats_torch(words)
+    mean, median, count = (t.cpu().numpy() for t in split_stats(stats.cpu()))
+    stop = start + pts.shape[0]
+    r_mean, r_median, r_count = (a[start:stop] for a in res.colours)
+    rec = dict(start=start, vertices=int(pts.shape[0]), views=n_views,
+               gather_equal=bool(torch.equal(words, plain)),
+               stats_equal=bool(torch.equal(stats, plain_stats)),
+               run_equal=bool(np.array_equal(mean, r_mean) and np.array_equal(median, r_median)
+                              and np.array_equal(count, r_count)),
+               max_abs_err=float(max((words - plain).abs().max(),
+                                     (stats.int() - plain_stats.int()).abs().max())))
+    n, samples, valid = int(pts.shape[0]), words.numel(), int((words != 0).sum())
+    rec["gather_ms"] = cuda_ms(gather, REPS)
+    rec["gather_plain_ms"] = cuda_ms(lambda: gather_colors_torch(pts, proj, texels), 1)
+    rec["gather_bound"] = roofline(COLORATION_FLOPS * samples,
+                                   12 * n + 48 * n_views + 3 * valid + 4 * samples,
+                                   rec["gather_ms"])
+    rec["stats_ms"] = cuda_ms(lambda: color_stats(words), REPS)
+    rec["stats_plain_ms"] = cuda_ms(lambda: color_stats_torch(words), 1)
+    rec["stats_bound"] = roofline(STATS_OPS * samples, 4 * samples + 10 * n, rec["stats_ms"])
+    return rec
+
+
+def capstone_main() -> int:
+    """``--capstone``: the capstone (``cudadepthmapintegration_torch.scripts.
+    capstone_1024``) on the card, in a process of its own, with its checks:
+
+    * the default mode at full size, 1000 maps of 512x512 into 1024^3 cells,
+      meshed and coloured, the kernels' launch counts set to 0 just before
+      and read just after; the fusion's bound by ``integrate_roofline``;
+    * the fused volume: 16 slices through the sphere's middle and 8 windows
+      of 128 x 128 cells across its surface bit-equal to the plain version on
+      the card; the windows against the float64 oracle (the share of
+      projected samples whose pixel float32 flips must stay within
+      ``FLIP_BUDGET``; the share of voxels off by more than 1e-3 is
+      reported); the same volume fused by one launch over all the maps;
+    * the mesh's median radius, the share of vertices coloured, and one
+      vertex chunk against the plain gather and statistics;
+    * the ``ckpt`` drill (bit-equal after the resume) and the ``hd`` mode (32
+      maps of 1920x1080 into the same grid, 16 slices bit-equal to the plain
+      version);
+    * the integrate kernel against its plain version on ``FUZZ_SEEDS``'
+      random scenes.
+
+    Prints the capstone's phase lines, then one line with the launches and
+    the checks; exits 1 when a check fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from cudadepthmapintegration_torch.kernels import _build, coloration_cuda, integrate_cuda
+    from cudadepthmapintegration_torch.ops.coloration import POINT_CHUNK
+    from cudadepthmapintegration_torch.scripts import capstone_1024 as cap
+
+    _build.load_library()
+    t0 = time.perf_counter()
+    integrate_cuda.launches = 0
+    coloration_cuda.launches = coloration_cuda.stats_launches = 0
+    res = cap.run()
+    launches = {"integrate": integrate_cuda.launches, "coloration": coloration_cuda.launches,
+                "coloration_stats": coloration_cuda.stats_launches}
+    run_s = time.perf_counter() - t0
+    grid, n_views = res.scene.grid, len(res.scene.cameras)
+    fusion = res.phases["fusion"]
+    fusion_bound = integrate_roofline(grid.num_cells, n_views, grid.volume_shape,
+                                      tuple(res.depths.shape[1:]), fusion["event_seconds"] * 1e3)
+
+    # One launch over every map, into a second volume: the same bits.
+    one = torch.zeros_like(res.volume)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    cap.fuse_maps(one, res.tables, res.depths, res.scene.params, batch=0)
+    end.record()
+    end.synchronize()
+    one_launch = dict(ms=start.elapsed_time(end), equal_bits=same_bits(one, res.volume),
+                      **integrate_roofline(grid.num_cells, n_views, grid.volume_shape,
+                                           tuple(res.depths.shape[1:]), start.elapsed_time(end)))
+    del one
+    torch.cuda.empty_cache()
+
+    centre_k = int(round(-grid.origin[2] / grid.spacing[2] - 0.5))
+    slab = capstone_slab(res, centre_k - CAPSTONE_SLAB // 2, CAPSTONE_SLAB)
+    oracle = capstone_oracle(res, cap.surface_windows(grid, CAPSTONE_WINDOWS, CAPSTONE_WINDOW),
+                             CAPSTONE_WINDOW)
+    radii = np.linalg.norm(res.mesh.points, axis=1)
+    count = res.colours[2]
+    n_chunks = -(-res.mesh.num_points // POINT_CHUNK)
+    chunk = capstone_chunk(res, (n_chunks // 2) * POINT_CHUNK)
+    del res
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    cap.checkpoint_drill()  # raises unless the resumed volume is bit-equal
+    ckpt_s = time.perf_counter() - t1
+    hd = cap.run(cap.HD_VIEWS, cap.DIMS, width=cap.HD_MAP[0], height=cap.HD_MAP[1], mesh=False,
+                 mode="hd")
+    hd_slab = capstone_slab(hd, centre_k - CAPSTONE_SLAB // 2, CAPSTONE_SLAB)
+    hd_fusion = hd.phases["fusion"]
+    hd_bound = integrate_roofline(grid.num_cells, cap.HD_VIEWS, grid.volume_shape,
+                                  tuple(hd.depths.shape[1:]), hd_fusion["event_seconds"] * 1e3)
+    del hd
+    torch.cuda.empty_cache()
+    fuzz = fuzz_cases()
+
+    checks = dict(
+        launched_integrate=launches["integrate"] == -(-n_views // cap.BATCH),
+        launched_gather=launches["coloration"] == n_chunks * -(-n_views // 64),
+        launched_stats=launches["coloration_stats"] == n_chunks,
+        one_launch_equal_bits=one_launch["equal_bits"],
+        slab_equal_bits=slab["equal_bits"],
+        windows_equal_bits=oracle["plain_equal_bits"],
+        flip_frac_within_budget=oracle["flip_frac"] <= FLIP_BUDGET,
+        median_radius=0.95 <= float(np.median(radii)) <= 1.05,
+        coloured_share=float((count > 0).mean()) >= 0.9,
+        chunk_gather_equal=chunk["gather_equal"],
+        chunk_stats_equal=chunk["stats_equal"],
+        chunk_equals_run=chunk["run_equal"],
+        hd_slab_equal_bits=hd_slab["equal_bits"],
+        fuzz_equal_bits=all(c["equal_bits"] for c in fuzz),
+    )
+    emit(dict(phase="capstone", launches=launches, run_s=run_s,
+              fusion=dict(ms=fusion["event_seconds"] * 1e3, **fusion_bound),
+              one_launch=one_launch, slab=slab, oracle=oracle, flip_budget=FLIP_BUDGET,
+              median_radius=float(np.median(radii)),
+              coloured_share=float((count > 0).mean()), chunk=chunk, ckpt_s=ckpt_s,
+              hd_fusion=dict(ms=hd_fusion["event_seconds"] * 1e3, **hd_bound), hd_slab=hd_slab,
+              fuzz=fuzz, checks=checks, seconds=time.perf_counter() - t0,
+              ok=all(checks.values())))
+    return 0 if all(checks.values()) else 1
+
+
+def capstone_phase():
+    """The capstone in a process of its own (``--capstone``): its lines are
+    printed here; a failed check fails the run. Returns the launches of its
+    main path by kernel."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--capstone"],
+                          capture_output=True, text=True, timeout=900)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"--capstone exited {proc.returncode}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit(dict(phase="capstone_done", seconds=time.perf_counter() - t0))
+    return rec["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2431,6 +2738,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="cdmi_smoke_rgbd_") as tmp:
         launches["sparse_fuse"] = fuse_rgbd_phase(tmp)
 
+    # 7. The capstone: 1000 maps into 1024^3 cells, meshed and coloured, in
+    # a process of its own (the card's memory of this one released first).
+    torch.cuda.empty_cache()
+    capstone = capstone_phase()
+
     def timing(rec):
         # No single PyTorch call computes any of these functions.
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share")} | {
@@ -2441,26 +2753,29 @@ def main() -> int:
         dict(name="integrate", route="cuda",
              source="cudadepthmapintegration_torch/csrc/integrate.cu",
              replaces="cudadepthmapintegration_tpu/kernels/integrate_pallas.py:925",
-             launches=launches["integrate"],
+             launches=launches["integrate"], capstone_launches=capstone["integrate"],
              max_abs_err=max(r["max_abs_err"] for r in records), **timing(main_case)),
         *(dict(name=f"integrate[{r['mode']}]", route="cuda",
                source="cudadepthmapintegration_torch/csrc/integrate.cu",
-               replaces=r["replaces"], launches=r["launches"], max_abs_err=r["max_abs_err"],
-               **timing(r)) for r in mode_rows),
+               replaces=r["replaces"], launches=r["launches"], capstone_launches=0,
+               max_abs_err=r["max_abs_err"], **timing(r)) for r in mode_rows),
         dict(name="coloration", route="cuda",
              source="cudadepthmapintegration_torch/csrc/coloration.cu",
              replaces="cudadepthmapintegration_tpu/kernels/coloration_pallas.py:85",
-             launches=launches["coloration"], max_abs_err=col["max_abs_err"],
+             launches=launches["coloration"], capstone_launches=capstone["coloration"],
+             max_abs_err=col["max_abs_err"],
              **timing(col["gather"])),
         dict(name="coloration_stats", route="cuda",
              source="cudadepthmapintegration_torch/csrc/coloration.cu",
              replaces="cudadepthmapintegration_tpu/ops/coloration.py:115,123",
-             launches=launches["coloration_stats"], max_abs_err=max(col["max_abs_err"], stats_err),
+             launches=launches["coloration_stats"],
+             capstone_launches=capstone["coloration_stats"],
+             max_abs_err=max(col["max_abs_err"], stats_err),
              **timing(col["stats"])),
         *(dict(name=name, route="cuda",
                source="cudadepthmapintegration_torch/csrc/sparse_fuse.cu",
                replaces="cudadepthmapintegration_tpu/kernels/gather_points.py:35",
-               launches=launches[name],
+               launches=launches[name], capstone_launches=0,
                max_abs_err=max(max(sparse[c][m]["max_abs_err"].values())
                                for c in cases for m in ("depth", "colour")),
                **timing(sparse[cases[0]]["colour"]),
@@ -2488,6 +2803,8 @@ if __name__ == "__main__":
         sys.exit(ab_main("gather", sys.argv[2]))
     if sys.argv[1:] == ["--sparse-cases"]:
         sys.exit(sparse_cases_main())
+    if sys.argv[1:] == ["--capstone"]:
+        sys.exit(capstone_main())
     if sys.argv[1:2] == ["--trace-metrics"] and len(sys.argv) == 3:
         sys.exit(trace_metrics_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sparse-shapes"] and len(sys.argv) in (2, 3):

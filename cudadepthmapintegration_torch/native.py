@@ -13,7 +13,9 @@ its Makefile; it is not part of either Python package. It provides:
 
 The library is built on first use: ``make -C native`` runs under an
 exclusive ``fcntl.flock`` on ``native/build/.lock``, so processes that load
-at the same time build it once, and none of them loads a half-written file.
+at the same time build it once. It builds into a private output and renames
+the file into place, so no process, this package's or another's, loads a
+half-written library of its build.
 A failed build is remembered with make's output: :func:`available` then
 returns False, and every other function raises ``RuntimeError`` with that
 output. Nothing falls back in here; callers that have another route (the
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -84,9 +87,34 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _make_into_place(native_dir: Path, lib_path: Path) -> None:
+    """Build the library into a private output (``make OUT=...``), then
+    rename it over ``lib_path``: another process, locked or not (the JAX
+    package's loader runs make without a lock), never sees a half-written
+    library of this build."""
+    private = lib_path.parent / f".tmp-{os.getpid()}"
+    private.mkdir(exist_ok=True)
+    out = private / LIB_NAME
+    cmd = ["make", "-C", str(native_dir), f"OUT={out.relative_to(native_dir)}"]
+    try:
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=MAKE_TIMEOUT_S)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"{' '.join(cmd)} could not run: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(out, lib_path)
+    finally:
+        shutil.rmtree(private, ignore_errors=True)
+
+
 def _build_and_open(native_dir: Path) -> ctypes.CDLL:
-    """Under the build lock: run make if the library is missing, then open
-    it. Raises RuntimeError with make's output if the build fails."""
+    """Under the build lock: build the library if it is missing, then open
+    it. A library that is there but does not open (a build outside the lock
+    was writing it) is built again. Raises RuntimeError with make's output
+    if the build fails."""
     build = native_dir / "build"
     lib_path = build / LIB_NAME
     try:
@@ -97,19 +125,15 @@ def _build_and_open(native_dir: Path) -> ctypes.CDLL:
     with lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         if not lib_path.exists():
-            cmd = ["make", "-C", str(native_dir)]
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True,
-                                      timeout=MAKE_TIMEOUT_S)
-            except (OSError, subprocess.TimeoutExpired) as e:
-                raise RuntimeError(f"{' '.join(cmd)} could not run: {e}") from e
-            if proc.returncode != 0:
-                raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
+            _make_into_place(native_dir, lib_path)
         try:
             lib = ctypes.CDLL(str(lib_path))
-        except OSError as e:
-            raise RuntimeError(f"cannot load {lib_path}: {e}") from e
+        except OSError:
+            _make_into_place(native_dir, lib_path)
+            try:
+                lib = ctypes.CDLL(str(lib_path))
+            except OSError as e:
+                raise RuntimeError(f"cannot load {lib_path}: {e}") from e
     _declare(lib)
     return lib
 

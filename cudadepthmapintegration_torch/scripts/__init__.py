@@ -1,0 +1,1 @@
+"""Driver scripts of the port, each run with ``python -m``."""

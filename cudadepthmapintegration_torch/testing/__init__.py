@@ -5,6 +5,7 @@ from .synthetic import (
     color_stat_columns,
     look_at_camera,
     orbit_cameras,
+    render_sphere_batch,
     render_sphere_view,
     sphere_scene,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "color_stat_columns",
     "look_at_camera",
     "orbit_cameras",
+    "render_sphere_batch",
     "render_sphere_view",
     "sphere_scene",
 ]

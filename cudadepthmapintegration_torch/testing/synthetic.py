@@ -8,6 +8,7 @@ and coloration can be validated end-to-end against closed-form geometry.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.camera import Camera
 from ..core.view import DepthMapView
@@ -17,6 +18,7 @@ __all__ = [
     "color_stat_columns",
     "look_at_camera",
     "orbit_cameras",
+    "render_sphere_batch",
     "render_sphere_view",
     "sphere_scene",
 ]
@@ -111,6 +113,52 @@ def render_sphere_view(
     return DepthMapView(
         depth=depth, camera=camera, color=color, best_cost=best_cost, name="sphere"
     )
+
+
+def render_sphere_batch(
+    k_inv: torch.Tensor,
+    c_cam: torch.Tensor,
+    width: int,
+    height: int,
+    radius: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`render_sphere_view` for a batch of cameras, on their device, in
+    their float dtype: ``k_inv`` (B, 3, 3) inverse intrinsics and ``c_cam``
+    (B, 3) the sphere's centre in each camera frame (``rt[:3, 3]`` for a
+    sphere at the origin).
+
+    Returns depth (B, H, W), the camera-space z of the first hit or -1 on a
+    miss, and colour (B, H, W, 3) uint8, the same Lambertian shading as
+    :func:`render_sphere_view` (0 on a miss). In float32 against that
+    function's float64, depths agree to float32 rounding, the hit mask can
+    differ on silhouette pixels, and a colour channel by one level (the
+    truncation to uint8)."""
+    dtype, dev = k_inv.dtype, k_inv.device
+    us = torch.arange(width, dtype=dtype, device=dev)[None, None, :]
+    vs = torch.arange(height, dtype=dtype, device=dev)[None, :, None]
+    ki = k_inv[:, :, :, None, None]
+    # Ray directions in the camera frame: k_inv @ (u, v, 1), (B, H, W) each.
+    d = [ki[:, r, 0] * us + ki[:, r, 1] * vs + ki[:, r, 2] for r in range(3)]
+    c = [c_cam[:, r, None, None] for r in range(3)]
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    dc = d[0] * c[0] + d[1] * c[1] + d[2] * c[2]
+    cc = (c_cam * c_cam).sum(dim=1)[:, None, None]
+    disc = dc * dc - dd * (cc - radius * radius)
+    hit = disc >= 0
+    t = (dc - torch.sqrt(torch.where(hit, disc, 0.0))) / dd  # nearest root
+    hit &= t > 0
+    depth = torch.where(hit, t * d[2], -1.0)
+    # Shading: the unit normal at the hit against the unit view ray.
+    n = [t * d[r] - c[r] for r in range(3)]
+    norm = torch.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2])
+    inv = torch.where(norm > 0, 1.0 / torch.clamp(norm, min=1e-12), 0.0)
+    cos = (n[0] * d[0] + n[1] * d[1] + n[2] * d[2]) * inv / torch.sqrt(dd)
+    shade = torch.clamp(-cos, 0.0, 1.0)
+    color = torch.stack(
+        [torch.where(hit, base + span * shade, 0.0) for base, span in ((64, 191), (32, 127), (16, 63))],
+        dim=-1,
+    ).to(torch.uint8)
+    return depth, color
 
 
 def sphere_scene(

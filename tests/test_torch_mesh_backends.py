@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from cudadepthmapintegration_torch import interop, native
+from _native_guard import native_libraries  # noqa: F401  (module fixture)
 from cudadepthmapintegration_torch.io import read_vti, read_vts, write_vti, write_vts
 from cudadepthmapintegration_torch.io import ImageData
 from cudadepthmapintegration_torch.parallel import make_mesh, sharded_extract_isosurface

@@ -6,8 +6,14 @@ between them; the fusion is also held to the port's float64 oracle within
 1e-12, as tests/test_native.py holds the JAX binding.
 
 The port builds the library under a file lock: four processes that load it
-at once from a fresh copy of ``native/`` run ``make`` once. A build that
+at once from a fresh copy of ``native/`` run ``make`` once. It builds into a
+private file and renames it into place, and builds again over a library
+that does not load (half written by a build outside the lock). A build that
 fails is kept with make's output, and an explicit native call raises it.
+
+The module fixture ``native_libraries`` (``tests/_native_guard.py``) loads
+both packages' libraries before these tests; a failure the JAX loader kept
+from a half-written library is cleared and loaded again.
 """
 
 import base64 as pybase64
@@ -21,6 +27,7 @@ import pytest
 import torch
 
 from cudadepthmapintegration_torch import interop, native
+from _native_guard import load_both, native_libraries  # noqa: F401  (module fixture)
 from cudadepthmapintegration_torch.ops import integrate_views_oracle
 from cudadepthmapintegration_torch.ops.marching_cubes import extract_isosurface
 from cudadepthmapintegration_tpu import native as jax_native
@@ -174,3 +181,46 @@ def test_unusable_build_dir_raises(failed_build, tmp_path):
     from cudadepthmapintegration_torch.io.vtkxml import _decompress_blocks
 
     assert _decompress_blocks(header + payload, np.uint32) == b"abc" * 100
+
+
+# Bytes of a library cut short: part of the ELF header, which dlopen refuses.
+CUT = 16
+
+
+def test_half_written_library_is_built_again(tmp_path, monkeypatch):
+    """A library cut short (another build writing it in place) does not load:
+    the loader builds a whole one into place and loads that. The cut keeps
+    the ELF header's first bytes only, where ``dlopen`` refuses the file; a
+    longer cut can map past the file's end and fault instead of failing."""
+    src = tmp_path / "native"
+    shutil.copytree(native.NATIVE_DIR, src, ignore=shutil.ignore_patterns("build"))
+    whole = (native.NATIVE_DIR / "build" / native.LIB_NAME).read_bytes()
+    (src / "build").mkdir()
+    (src / "build" / native.LIB_NAME).write_bytes(whole[:CUT])
+    monkeypatch.setattr(native, "NATIVE_DIR", src)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_error", None)
+    assert native.available()
+    assert native.base64_encode(b"whole") == pybase64.b64encode(b"whole").decode()
+    assert (src / "build" / native.LIB_NAME).stat().st_size > CUT
+    # The private output is gone: only the library and the lock remain.
+    assert sorted(p.name for p in (src / "build").iterdir()) == [".lock", native.LIB_NAME]
+
+
+def test_guard_recovers_a_kept_jax_failure(tmp_path, monkeypatch):
+    """The JAX loader meets a half-written library, fails to load it and
+    keeps the failure; ``load_both`` clears it and loads the whole one."""
+    whole = (native.NATIVE_DIR / "build" / native.LIB_NAME).read_bytes()
+    cut = tmp_path / native.LIB_NAME
+    cut.write_bytes(whole[:CUT])
+    real_path = jax_native._LIB_PATH
+    monkeypatch.setattr(jax_native, "_LIB_PATH", str(cut))
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_tried", False)
+    assert not jax_native.available()
+    monkeypatch.setattr(jax_native, "_LIB_PATH", real_path)
+    assert not jax_native.available()  # the failure is kept
+    load_both()
+    assert jax_native.available()
+    data = b"recovered"
+    assert jax_native.base64_encode(data) == native.base64_encode(data)
