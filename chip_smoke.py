@@ -47,9 +47,22 @@ process, on synthetic datasets:
   then its ``ckpt`` drill and its ``hd`` mode. 16 slices and 8 windows of
   the volume are held to the plain version in bit patterns, the windows to
   the float64 oracle (the share of projected samples whose pixel float32
-  flips stays within the flip budget; the voxels off are reported), one
-  vertex chunk to the plain gather and statistics, and the integrate
-  kernel meets four random scenes of tests/test_fuzz_parity.py.
+  flips stays within the flip budget; the voxels off are reported), and one
+  vertex chunk to the plain gather and statistics;
+* the port's counterparts of the JAX side's last four top-level scripts
+  (``cudadepthmapintegration_torch/scripts/``), each in a process of its own
+  with the launch counts set to 0 just before its path and read just
+  after: ``pipeline_e2e`` (``--pipeline-e2e``: BASELINE config 3, 512^3
+  cells from 200 views of 512x512 rendered, fused, meshed, coloured and
+  written, its volume bit-equal to the plain version over every map),
+  ``fuzz_extended`` (``--fuzz-extended``: four random scenes of
+  tests/test_fuzz_parity.py and 100 from seed 1000 through every route,
+  each held to the plain versions), ``fp32_error`` (``--fp32-error``: the
+  float32 error against the float64 oracle at 8, 64, 256 and 1000 views,
+  the CUDA kernel at each, bit-equal to the plain version) and
+  ``pod_probe`` (``--pod-probe``: ``--local 4``, views/s on 1, 2 and 4
+  z-slabs of the card, bit-equal across them and to the plain version, the
+  staging split and the resume costs).
 
 The integrate kernel is held to its plain version in bit patterns (int32
 view, which tells -0.0 from +0.0), on the odd grid from a volume of -0.0
@@ -79,7 +92,8 @@ recorded no device time.
 
 Every phase prints one JSON line. The line before the last holds the
 kernels' record (launches counted during each kernel's CLI run only, and
-during the capstone's default mode as ``capstone_launches``, errors,
+during the capstone's default mode as ``capstone_launches`` and each of the
+port's scripts' paths as ``<phase>_launches``, errors,
 bounds and CUDA-event times of one call measured here; the coloration
 records carry the card's own time, ``device_ms``, beside them); the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -221,8 +235,18 @@ MESH_REPS = 3
 CAPSTONE_SLAB = 16
 CAPSTONE_WINDOWS = 8
 CAPSTONE_WINDOW = 128
-# Seeds of tests/test_fuzz_parity.py's random scenes that meet the kernel.
+# Seeds of tests/test_fuzz_parity.py's random scenes that the fuzz phase
+# runs before the extended fuzz's.
 FUZZ_SEEDS = (1, 11, 12, 13)
+# The extended fuzz's seeds: (how many, the first), the JAX script's defaults.
+FUZZ_EXTENDED = (100, 1000)
+# The port scripts' phases, each a process of this script: (flag, phase).
+SCRIPT_PHASES = (("--pipeline-e2e", "pipeline_e2e"), ("--fuzz-extended", "fuzz_extended"),
+                 ("--fp32-error", "fp32_error"), ("--pod-probe", "pod_probe"))
+# The TPU run's mesh of BASELINE config 3 (E2E_512.json: points, triangles),
+# reported beside the card's, not compared: that volume went through another
+# staging.
+E2E_TPU_MESH = (906386, 1812772)
 
 
 def emit(record: dict) -> None:
@@ -2242,64 +2266,6 @@ class _PlainColoration:
         ops.gather_colors, ops.color_stats = self.saved
 
 
-def fuzz_scene(seed):
-    """``random_scene`` of tests/test_fuzz_parity.py with the port's classes,
-    draw for draw from ``default_rng(seed)``: a random grid of 6-13 cells an
-    axis, 2-4 cameras of random rotation and placement, maps of 130-199 x
-    16-39 random depths with holes, random ray parameters."""
-    from cudadepthmapintegration_torch.core import Camera, DepthMapView, RayPotential, VoxelGrid
-
-    rng = np.random.default_rng(seed)
-    grid = VoxelGrid(dims=tuple(rng.integers(6, 14, 3)), origin=tuple(rng.uniform(-2, 0, 3)),
-                     spacing=tuple(rng.uniform(0.1, 0.4, 3)))
-    views = []
-    h, w = int(rng.integers(16, 40)), int(rng.integers(130, 200))
-    for _ in range(int(rng.integers(2, 5))):
-        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
-        if np.linalg.det(q) < 0:
-            q[:, 0] *= -1
-        rt = np.eye(4)
-        rt[:3, :3] = q
-        rt[:3, 3] = rng.uniform(-1, 1, 3) + [0, 0, rng.uniform(2, 5)]
-        k = np.array([[rng.uniform(30, 120), 0, w / 2 + rng.uniform(-5, 5)],
-                      [0, rng.uniform(30, 120), h / 2 + rng.uniform(-5, 5)],
-                      [0, 0, 1]])
-        depth = rng.uniform(0.5, 6.0, (h, w))
-        depth[rng.uniform(size=(h, w)) < 0.1] = -1.0
-        views.append(DepthMapView(depth=depth, camera=Camera(k=k, rt=rt)))
-    thick, rho, eta = (float(rng.uniform(0.02, 0.3)), float(rng.uniform(0.2, 1.5)),
-                       float(rng.uniform(0.0, 1.0)))
-    params = RayPotential(thick=thick, rho=rho, eta=eta,
-                          delta=thick * float(rng.uniform(1.0, 4.0)))
-    return grid, views, params
-
-
-def fuzz_cases():
-    """The integrate kernel against its plain version on ``FUZZ_SEEDS``'
-    random scenes, in int32 bit patterns."""
-    import torch
-
-    from cudadepthmapintegration_torch.kernels.integrate_cuda import (
-        integrate_views,
-        integrate_views_torch,
-    )
-    from cudadepthmapintegration_torch.ops.integrate import projection_tables
-
-    cases = []
-    for seed in FUZZ_SEEDS:
-        grid, views, params = fuzz_scene(seed)
-        t = projection_tables(grid, views, np.float32)
-        depths = np.stack([v.depth for v in views]).astype(np.float32)
-        args = [torch.from_numpy(a).cuda() for a in (t.tx, t.ty, t.tz, t.tc, depths)]
-        kernel = integrate_views(torch.zeros(grid.volume_shape, device="cuda"), *args, params)
-        plain = integrate_views_torch(torch.zeros_like(kernel), *args, params)
-        cases.append(dict(seed=seed, cells=list(grid.volume_shape), views=len(views),
-                          map=list(depths.shape[1:]), equal_bits=same_bits(kernel, plain),
-                          max_abs_err=float((kernel - plain).abs().max()),
-                          nonzero=int((kernel != 0).sum())))
-    return cases
-
-
 def capstone_slab(res, k0, n):
     """Slices ``k0 .. k0+n`` of the capstone's volume against the plain
     version on the card over every map, in int32 bit patterns: the plain
@@ -2423,9 +2389,7 @@ def capstone_main() -> int:
       vertex chunk against the plain gather and statistics;
     * the ``ckpt`` drill (bit-equal after the resume) and the ``hd`` mode (32
       maps of 1920x1080 into the same grid, 16 slices bit-equal to the plain
-      version);
-    * the integrate kernel against its plain version on ``FUZZ_SEEDS``'
-      random scenes.
+      version).
 
     Prints the capstone's phase lines, then one line with the launches and
     the checks; exits 1 when a check fails."""
@@ -2486,7 +2450,6 @@ def capstone_main() -> int:
                                   tuple(hd.depths.shape[1:]), hd_fusion["event_seconds"] * 1e3)
     del hd
     torch.cuda.empty_cache()
-    fuzz = fuzz_cases()
 
     checks = dict(
         launched_integrate=launches["integrate"] == -(-n_views // cap.BATCH),
@@ -2502,7 +2465,6 @@ def capstone_main() -> int:
         chunk_stats_equal=chunk["stats_equal"],
         chunk_equals_run=chunk["run_equal"],
         hd_slab_equal_bits=hd_slab["equal_bits"],
-        fuzz_equal_bits=all(c["equal_bits"] for c in fuzz),
     )
     emit(dict(phase="capstone", launches=launches, run_s=run_s,
               fusion=dict(ms=fusion["event_seconds"] * 1e3, **fusion_bound),
@@ -2510,24 +2472,144 @@ def capstone_main() -> int:
               median_radius=float(np.median(radii)),
               coloured_share=float((count > 0).mean()), chunk=chunk, ckpt_s=ckpt_s,
               hd_fusion=dict(ms=hd_fusion["event_seconds"] * 1e3, **hd_bound), hd_slab=hd_slab,
-              fuzz=fuzz, checks=checks, seconds=time.perf_counter() - t0,
+              checks=checks, seconds=time.perf_counter() - t0,
               ok=all(checks.values())))
     return 0 if all(checks.values()) else 1
 
 
-def capstone_phase():
-    """The capstone in a process of its own (``--capstone``): its lines are
-    printed here; a failed check fails the run. Returns the launches of its
-    main path by kernel."""
+def script_main(name, run, checks) -> int:
+    """A port script's path on the card, in a process of its own: ``run()``
+    with the launch counts set to 0 just before it and read just after, then
+    ``checks(result, launches)`` (a dict of named booleans). Emits one line
+    with the launches, the checks and the record; exits 1 when a check
+    fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from cudadepthmapintegration_torch.kernels import (
+        _build,
+        coloration_cuda,
+        integrate_cuda,
+        sparse_cuda,
+    )
+
+    _build.load_library()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--capstone"],
-                          capture_output=True, text=True, timeout=900)
+    integrate_cuda.launches = 0
+    coloration_cuda.launches = coloration_cuda.stats_launches = 0
+    sparse_cuda.launches = sparse_cuda.rows_launches = 0
+    res = run()
+    launches = {"integrate": integrate_cuda.launches, "coloration": coloration_cuda.launches,
+                "coloration_stats": coloration_cuda.stats_launches,
+                "sparse_fuse": sparse_cuda.rows_launches,
+                "sparse_fuse[general]": sparse_cuda.launches - sparse_cuda.rows_launches}
+    got = checks(res, launches)
+    rec = res.record if hasattr(res, "record") else res
+    emit(dict(phase=name, launches=launches, checks=got, record=rec,
+              seconds=time.perf_counter() - t0, ok=all(got.values())))
+    return 0 if all(got.values()) else 1
+
+
+def pipeline_e2e_main() -> int:
+    """``--pipeline-e2e``: BASELINE config 3 at full size (512^3 cells, 200
+    views of 512x512; ``scripts/pipeline_e2e.py``), its phases printed as it
+    runs. Checks: the JAX script's gates (median radius within 0.02 of 1,
+    unit normals) and at least 90 % of the vertices coloured; the fused
+    volume bit-equal to the plain version on the card over every map; one
+    integrate launch an arrival of 32 maps, and the coloration kernels
+    launched; the kernel alone on the staged maps beside its bound
+    (``integrate_roofline``). The mesh's counts stand beside the TPU run's
+    (``E2E_512.json``), not gated: that volume went through another
+    staging."""
+    from cudadepthmapintegration_torch.scripts import pipeline_e2e as pe
+
+    def checks(res, launches):
+        plain = pe.check_volume(res)  # after the counts were read: a comparison's launches
+        grid, maps = res.grid, res.views[0].depth.shape
+        plain["kernel_bound"] = integrate_roofline(grid.num_cells, len(res.views),
+                                                   grid.volume_shape, maps,
+                                                   plain["kernel_event_s"] * 1e3)
+        res.record["tpu_record_mesh"] = E2E_TPU_MESH
+        return dict(res.record["checks"],
+                    launched_integrate=launches["integrate"] == -(-pe.N_VIEWS // pe.STREAM_BATCH),
+                    launched_gather=launches["coloration"] > 0,
+                    launched_stats=launches["coloration_stats"] > 0)
+
+    return script_main("pipeline_e2e", pe.run, checks)
+
+
+def fuzz_extended_main() -> int:
+    """``--fuzz-extended``: ``scripts/fuzz_extended.py`` on ``FUZZ_SEEDS``
+    and 100 seeds from 1000, every check on the card (each route of the
+    integrate kernel, the coloration kernels and the occlusion gather held
+    to their plain versions). Checks: no failing seed, the native float64
+    checks ran, and every kernel of the fuzz launched."""
+    from cudadepthmapintegration_torch.scripts import fuzz_extended as fz
+
+    n, seed0 = FUZZ_EXTENDED
+    seeds = [*FUZZ_SEEDS, *range(seed0, seed0 + n)]
+
+    def checks(rec, launches):
+        return dict(no_failing_seed=rec["failures"] == 0, seeds=rec["seed_list"] == seeds,
+                    native_ran=rec["native"], launched_integrate=launches["integrate"] > 0,
+                    launched_gather=launches["coloration"] > 0,
+                    launched_stats=launches["coloration_stats"] > 0)
+
+    return script_main("fuzz_extended", lambda: fz.run(seeds), checks)
+
+
+def fp32_error_main() -> int:
+    """``--fp32-error``: ``scripts/fp32_error_study.py`` at 8, 64, 256 and
+    1000 views, the CUDA kernel at each. Checks: the JAX script's verdict
+    (the float32 accumulation error at 1000 views under 1 % of rho), the
+    kernel's volume bit-equal to the plain version on the card at every
+    count, the share of flipped samples within ``FLIP_BUDGET`` at every
+    count (the capstone's gate), one launch a count."""
+    from cudadepthmapintegration_torch.scripts import fp32_error_study as fp
+
+    def checks(rec, launches):
+        return dict(verdict_pass=rec["verdict"] == "PASS",
+                    counts=[r["views"] for r in rec["kernel_rows"]] == list(fp.COUNTS),
+                    kernel_equals_plain=all(r["plain_equal_bits"] for r in rec["kernel_rows"]),
+                    flip_frac_within_budget=all(r["flip_frac"] <= FLIP_BUDGET
+                                                for r in rec["kernel_rows"]),
+                    launched_integrate=launches["integrate"] == len(fp.COUNTS))
+
+    return script_main("fp32_error", lambda: fp.run(fp.COUNTS, "cuda"), checks)
+
+
+def pod_probe_main() -> int:
+    """``--pod-probe``: ``scripts/pod_probe.py --local 4`` at full size (513
+    points an axis, 64 views of 512x512) on four z-slabs of the card. Checks:
+    P = 1, 2, 4 all ran and each P's volume equals P = 1's bit for bit,
+    P = 1's equals the plain version on the same staged, culled inputs on
+    the card bit for bit, the checkpoint round trip is exact, and the
+    integrate kernel launched."""
+    from cudadepthmapintegration_torch.scripts import pod_probe as pp
+
+    def checks(rec, launches):
+        rows = rec["phases"]["scale"]["rows"]
+        return dict(rec["gates"], slab_counts=[r["p"] for r in rows] == [1, 2, 4],
+                    launched_integrate=launches["integrate"] > 0)
+
+    return script_main("pod_probe", lambda: pp.run(pp.PHASES, local=4, device="cuda"), checks)
+
+
+def script_phase(flag, name, timeout=900):
+    """``python3 chip_smoke.py FLAG`` in a process of its own: its lines are
+    printed here, and a failed check fails the run. Returns the launches of
+    its path by kernel (its last line's)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          capture_output=True, text=True, timeout=timeout)
     print(proc.stdout, end="", flush=True)
     if proc.returncode != 0:
         print(proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError(f"--capstone exited {proc.returncode}")
+        raise AssertionError(f"{flag} exited {proc.returncode}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
-    emit(dict(phase="capstone_done", seconds=time.perf_counter() - t0))
+    emit(dict(phase=f"{name}_done", seconds=time.perf_counter() - t0))
     return rec["launches"]
 
 
@@ -2741,12 +2823,22 @@ def main() -> int:
     # 7. The capstone: 1000 maps into 1024^3 cells, meshed and coloured, in
     # a process of its own (the card's memory of this one released first).
     torch.cuda.empty_cache()
-    capstone = capstone_phase()
+    capstone = script_phase("--capstone", "capstone")
+
+    # 8. The counterparts of the JAX side's last four top-level scripts, each
+    # in a process of its own: BASELINE config 3 end to end, the extended
+    # fuzz, the float32 error by view count, the z-slab scaling probe on four
+    # slabs of this card.
+    scripts = {name: script_phase(flag, name) for flag, name in SCRIPT_PHASES}
 
     def timing(rec):
         # No single PyTorch call computes any of these functions.
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "roofline_share")} | {
             "library_ms": None}
+
+    def on_paths(kernel):
+        # Each port script's launches of this kernel on its own path.
+        return {f"{phase}_launches": rec.get(kernel, 0) for phase, rec in scripts.items()}
 
     main_case = records[0]
     emit({"kernels": [
@@ -2754,23 +2846,24 @@ def main() -> int:
              source="cudadepthmapintegration_torch/csrc/integrate.cu",
              replaces="cudadepthmapintegration_tpu/kernels/integrate_pallas.py:925",
              launches=launches["integrate"], capstone_launches=capstone["integrate"],
-             max_abs_err=max(r["max_abs_err"] for r in records), **timing(main_case)),
+             max_abs_err=max(r["max_abs_err"] for r in records), **on_paths("integrate"),
+             **timing(main_case)),
         *(dict(name=f"integrate[{r['mode']}]", route="cuda",
                source="cudadepthmapintegration_torch/csrc/integrate.cu",
                replaces=r["replaces"], launches=r["launches"], capstone_launches=0,
-               max_abs_err=r["max_abs_err"], **timing(r)) for r in mode_rows),
+               max_abs_err=r["max_abs_err"], **on_paths(None), **timing(r)) for r in mode_rows),
         dict(name="coloration", route="cuda",
              source="cudadepthmapintegration_torch/csrc/coloration.cu",
              replaces="cudadepthmapintegration_tpu/kernels/coloration_pallas.py:85",
              launches=launches["coloration"], capstone_launches=capstone["coloration"],
-             max_abs_err=col["max_abs_err"],
+             max_abs_err=col["max_abs_err"], **on_paths("coloration"),
              **timing(col["gather"])),
         dict(name="coloration_stats", route="cuda",
              source="cudadepthmapintegration_torch/csrc/coloration.cu",
              replaces="cudadepthmapintegration_tpu/ops/coloration.py:115,123",
              launches=launches["coloration_stats"],
              capstone_launches=capstone["coloration_stats"],
-             max_abs_err=max(col["max_abs_err"], stats_err),
+             max_abs_err=max(col["max_abs_err"], stats_err), **on_paths("coloration_stats"),
              **timing(col["stats"])),
         *(dict(name=name, route="cuda",
                source="cudadepthmapintegration_torch/csrc/sparse_fuse.cu",
@@ -2778,7 +2871,7 @@ def main() -> int:
                launches=launches[name], capstone_launches=0,
                max_abs_err=max(max(sparse[c][m]["max_abs_err"].values())
                                for c in cases for m in ("depth", "colour")),
-               **timing(sparse[cases[0]]["colour"]),
+               **on_paths(name), **timing(sparse[cases[0]]["colour"]),
                device_ms=sparse[cases[0]]["colour"]["device_ms"],
                cold_device_ms=sparse[cases[0]]["colour"]["cold_device_ms"],
                cold_device_share=sparse[cases[0]]["colour"]["cold_device_share"])
@@ -2805,6 +2898,14 @@ if __name__ == "__main__":
         sys.exit(sparse_cases_main())
     if sys.argv[1:] == ["--capstone"]:
         sys.exit(capstone_main())
+    if sys.argv[1:] == ["--pipeline-e2e"]:
+        sys.exit(pipeline_e2e_main())
+    if sys.argv[1:] == ["--fuzz-extended"]:
+        sys.exit(fuzz_extended_main())
+    if sys.argv[1:] == ["--fp32-error"]:
+        sys.exit(fp32_error_main())
+    if sys.argv[1:] == ["--pod-probe"]:
+        sys.exit(pod_probe_main())
     if sys.argv[1:2] == ["--trace-metrics"] and len(sys.argv) == 3:
         sys.exit(trace_metrics_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sparse-shapes"] and len(sys.argv) in (2, 3):

@@ -47,15 +47,13 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
 
-from ..core.camera import Camera, round_half_away
+from ..core.camera import Camera
 from ..core.grid import VoxelGrid
 from ..core.ray_potential import RayPotential, ray_potential_np
 from ..core.view import DepthMapView
@@ -70,6 +68,7 @@ from ..ops.normals import normals_for_edge_keys, transform_normals
 from ..pipeline.checkpoint import FusionCheckpoint, load_checkpoint, save_checkpoint
 from ..testing import look_at_camera, render_sphere_batch
 from ..utils.dtype import numpy_dtype
+from ._common import Clock, card_description, kernel_flips, same_bits, script_device
 
 __all__ = [
     "Result",
@@ -258,22 +257,15 @@ def sampled_oracle(
         has_flip = np.zeros((sy, sx), bool)
         for v, cam in enumerate(scene.cameras):
             u, vv, cam_z, hom_z = cam.project_points(world)
-            px, py = round_half_away(u), round_half_away(vv)
-            on64 = ((hom_z >= 0) & np.isfinite(px) & np.isfinite(py)
-                    & (px >= 0) & (py >= 0) & (px < w) & (py < h))
-            d = depths[v][np.where(on64, py, 0).astype(np.int64),
-                          np.where(on64, px, 0).astype(np.int64)]
-            exp += np.where(on64 & (d != -1.0), ray_potential_np(cam_z, d, params), 0.0)
             # The kernel's projection: hom = ty + (tx + (tz + tc)) in float32.
             hom = [ty[v, r, j0:j0 + sy, None] + (tx[v, r, None, i0:i0 + sx]
                                                  + (tz[v, r, k] + tc[v, r]))
                    for r in range(3)]
-            with np.errstate(divide="ignore", invalid="ignore"):
-                u32 = round_half_away(hom[0] / hom[2])
-                v32 = round_half_away(hom[1] / hom[2])
-            on32 = (hom[2] >= 0) & (u32 >= 0) & (v32 >= 0) & (u32 < w) & (v32 < h)
-            flip = (on64 != on32) | (on64 & ((px != u32) | (py != v32)))
-            projected += int((on64 | on32).sum())
+            (px, py, on64), (proj, flip) = kernel_flips(u, vv, hom_z, hom, w, h)
+            d = depths[v][np.where(on64, py, 0).astype(np.int64),
+                          np.where(on64, px, 0).astype(np.int64)]
+            exp += np.where(on64 & (d != -1.0), ray_potential_np(cam_z, d, params), 0.0)
+            projected += int(proj.sum())
             flipped += int(flip.sum())
             has_flip |= flip
         err = np.abs(vol - exp)
@@ -284,19 +276,6 @@ def sampled_oracle(
     return dict(windows=len(windows), voxels=voxels, off_voxels=off, off_frac=off / voxels,
                 off_voxels_with_flip=off_flipped, max_abs_err=max_err, projected_samples=projected, flipped_samples=flipped,
                 flip_frac=flipped / max(projected, 1))
-
-
-def card_description(device: torch.device) -> str:
-    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
-    power.limit --format=csv,noheader`` prints them, or ``"cpu"``."""
-    if device.type != "cuda":
-        return "cpu"
-    out = subprocess.run(
-        ["nvidia-smi", f"--id={device.index or 0}", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 class Report:
@@ -313,43 +292,6 @@ class Report:
                    card=self.card)
         self.phases[phase] = rec
         print(json.dumps(rec), flush=True)
-
-
-class Clock:
-    """Seconds of a block of work: host wall time with the device drained at
-    both ends (``seconds``) and, on a card, the CUDA-event time on the
-    current stream (``event_seconds``, else None)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.seconds = self.event_seconds = None
-
-    def __enter__(self) -> "Clock":
-        if self.cuda:
-            torch.cuda.synchronize()
-            self._events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            self._events[0].record()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        if self.cuda:
-            self._events[1].record()
-            torch.cuda.synchronize()
-            self.event_seconds = self._events[0].elapsed_time(self._events[1]) / 1e3
-        self.seconds = time.perf_counter() - self._t0
-
-
-def _device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device with no card raises (no
-    fallback to the CPU)."""
-    device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the capstone runs on cuda or cpu, not {device}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the capstone on a CUDA device needs a card and none is available "
-                           "(--device cpu runs the plain versions)")
-    return device
 
 
 def mesh_volume(grid: VoxelGrid, volume: torch.Tensor, iso: float, report: Report) -> PolyData:
@@ -422,7 +364,7 @@ def run(
     ``dims``^3-point grid and, with ``mesh``, mesh the whole volume and colour
     it against every view, ``BATCH`` maps an integrate launch. Prints one
     JSON line a phase."""
-    device = _device(device)
+    device = script_device(device, "the capstone")
     report = Report(device, mode)
     clock = Clock(device)
     if device.type == "cuda":
@@ -470,7 +412,7 @@ def checkpoint_drill(
     volume dropped, the file reloaded and checked against the grid and ray
     potential, and the rest fused. Raises unless the two volumes are equal
     in int32 bit patterns; returns (straight, resumed)."""
-    device = _device(device)
+    device = script_device(device, "the capstone")
     if n_views < 2:
         raise ValueError(f"the drill needs at least 2 views, got {n_views}")
     report = Report(device, "ckpt")
@@ -498,7 +440,7 @@ def checkpoint_drill(
             volume = torch.from_numpy(ck.volume).to(device)
         file_bytes = os.path.getsize(path)
     fuse_maps(volume, tables, depths, params, start=half)
-    same = torch.equal(straight.view(torch.int32), volume.view(torch.int32))
+    same = same_bits(straight, volume)
     report("checkpoint", views=n_views, dims=dims, map=[width, height], saved_at_view=half,
            save_reload_s=clock.seconds, file_bytes=file_bytes, bit_equal=same)
     if not same:

@@ -16,8 +16,9 @@ seeds as that file. Tolerances, and why:
   tests/test_torch_integrate.py, on the tables ``stage_tables`` lays out)
   and the plain version, also from a volume of -0.0.
 
-``chip_smoke.py`` meets the CUDA kernel with four of these scenes; its copy
-of the generator is held here to ``random_scene``, draw for draw.
+``chip_smoke.py`` meets the CUDA kernel with four of these scenes, made by
+the port's copy of the generator (``scripts/fuzz_extended.random_scene``),
+held here to ``random_scene``, draw for draw.
 """
 
 import importlib.util
@@ -34,6 +35,7 @@ from cudadepthmapintegration_torch.kernels.integrate_cuda import (
     stage_tables,
 )
 from cudadepthmapintegration_torch.ops.integrate import TSDFIntegrator, projection_tables
+from cudadepthmapintegration_torch.scripts import fuzz_extended
 from cudadepthmapintegration_tpu.ops import integrate_views_oracle
 from test_fuzz_parity import random_scene
 from test_torch_integrate import KZ, NEG_ZERO, kernel_order_fuse
@@ -105,9 +107,12 @@ def chip_smoke():
 
 @pytest.mark.parametrize("seed", [1, 11, 12, 13])
 def test_chip_smoke_scenes_are_random_scenes(seed):
+    """``chip_smoke.py`` makes its fuzz scenes with the port's
+    ``scripts/fuzz_extended.random_scene``, which must draw as the JAX
+    package's ``random_scene`` does."""
     smoke = chip_smoke()
     assert seed in smoke.FUZZ_SEEDS
-    grid, views, params = smoke.fuzz_scene(seed)
+    grid, views, params = fuzz_extended.random_scene(seed)
     exp_grid, exp_views, exp_params = random_scene(seed)
     assert grid.dims == tuple(exp_grid.dims)
     np.testing.assert_array_equal(grid.origin, exp_grid.origin)
